@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (plonky2_tpu_torch) on one GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one line each:
+  0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc versions;
+  1. build of every CUDA kernel in plonky2_tpu_torch/csrc (nvcc, sm_90a);
+  2. Poseidon kernel against its plain torch version on 2^17 states (exact);
+  3. LDE kernel against its plain torch version at (4, 2^20) r=1 and
+     (64, 2^16) r=3 (exact);
+  4. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
+     proof bytes, and a wrong public result is rejected by the verifier;
+  5. the slice at full size: a 2^20-row Fibonacci STARK under
+     StarkConfig.standard_fast_config() proved twice on cuda and verified,
+     with each kernel's calls and kernel launches on that path;
+  6. the same prove once more under torch.profiler: device busy time, the
+     device's idle share of the wall time, and device time by kernel;
+  7. a JSON line with every kernel's launches, times and bound.
+The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
+before it.  Times are medians of CUDA-event timings after a warm-up.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Peaks of one H100 SXM at its full 700 W power limit: HBM3 bandwidth (NVIDIA
+# data sheet), and 32-bit integer multiplies at 64 per clock per SM (the
+# CUDA C++ Programming Guide's throughput table for compute capability 9.0)
+# on 132 SMs at 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
+
+
+# 32-bit multiplies in one Goldilocks multiply: a 64x64->128-bit product is
+# four 32x32->64-bit partial products (one IMAD.WIDE.U32 each); the
+# reduction needs none (its product by 2^32 - 1 is a shift and a subtract).
+# The bounds below count only these multiplies, so they are floors.
+MULMOD_MULS = 4
+
+
+def poseidon_muls() -> int:
+    """32-bit multiplies in one Poseidon permutation.  S-boxes: x^7 is four
+    Goldilocks multiplies, on 12 lanes in the 8 full rounds and on lane 0 in
+    the 22 partial rounds.  MDS: each output lane sums constant x 32-bit half
+    products over both halves; a constant that is a power of two is a shift,
+    any other one IMAD.WIDE.U32 (constants <= 41, products < 2^38)."""
+    from plonky2_tpu_torch.hash import poseidon_constants as C
+
+    def muls(consts):
+        return sum(1 for c in consts if c & (c - 1))   # nonzero, not 2^j
+    w = C.SPONGE_WIDTH
+    sboxes = C.N_FULL_ROUNDS_TOTAL * w + C.N_PARTIAL_ROUNDS
+    mds = C.N_ROUNDS * 2 * (w * muls(C.MDS_MATRIX_CIRC) + muls(C.MDS_MATRIX_DIAG))
+    return sboxes * 4 * MULMOD_MULS + mds
+
+
+def line(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of fn() by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    t_ops = ops / INT32_MUL_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def max_abs_err(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest |a - b| over canonical u64 values (exact integers)."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    diff = np.nonzero(fa != fb)[0]
+    return max((abs(int(fa[i]) - int(fb[i])) for i in diff), default=0)
+
+
+def phase_card() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    from plonky2_tpu_torch.utils.cuda import nvcc_path
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    line("card", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=nvcc,
+         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+
+
+def phase_build() -> None:
+    from plonky2_tpu_torch.utils import cuda
+    t0 = time.perf_counter()
+    libs = cuda.build_all()
+    secs = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+             for name, log in cuda.build_log.items()}
+    line("build", seconds=secs, libraries=sorted(libs), ptxas=ptxas,
+         sass_multiplies={name: sass_multiplies(path)
+                          for name, path in sorted(libs.items())})
+
+
+def sass_multiplies(so_path) -> dict:
+    """Static count of integer-multiply SASS instructions (IMAD*, except the
+    IMAD.MOV/IADD/SHL forms that only move, add or shift) in each kernel of
+    a built library, from cuobjdump."""
+    import re
+    from plonky2_tpu_torch.utils.cuda import nvcc_path
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?(IMAD\S*)")
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = re.search(r"[a-z_]+_kernel", m.group(1))
+            fn = name.group(0) if name else m.group(1)
+            out[fn] = {}
+            continue
+        m = op_re.search(ln)
+        if m and fn and not m.group(1).startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")):
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return out
+
+
+def phase_poseidon() -> dict:
+    from plonky2_tpu_torch.field.goldilocks import canonical
+    from plonky2_tpu_torch.hash import poseidon
+    rng = np.random.default_rng(1)
+    b = 1 << 17
+    states = rng.integers(0, 1 << 64, size=(b, 12), dtype=np.uint64,
+                          endpoint=False)
+    # values in [p, 2^64) and the zero state
+    states[:1024] = np.uint64(0xFFFFFFFF00000001) + rng.integers(
+        0, 0xFFFFFFFF, size=(1024, 12), dtype=np.uint64)
+    states[1024] = 0
+    x = torch.from_numpy(states.view(np.int64)).cuda()
+    got = canonical(poseidon.permute_cuda(x)).cpu().numpy().view(np.uint64)
+    want = canonical(poseidon.permute_torch(x)).cpu().numpy().view(np.uint64)
+    err = max_abs_err(got, want)
+    if err:
+        fail(f"poseidon kernel differs from permute_torch (max |err| {err})")
+    ms = cuda_ms(lambda: poseidon.permute_cuda(x))
+    plain_ms = cuda_ms(lambda: poseidon.permute_torch(x), reps=3)
+    bound_ms, bound_by = bound(b * poseidon_muls(), b * 12 * 8 * 2)
+    line("poseidon", states=b, exact=True, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, int32_muls_per_perm=poseidon_muls(),
+         mperms_per_s=b / ms / 1e3)
+    return {"name": "poseidon_permute", "route": "cuda",
+            "source": "plonky2_tpu_torch/csrc/poseidon.cu",
+            "replaces": "plonky2_tpu/ops/poseidon_pallas.py:240",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def lde_case(k: int, log_n: int, rate_bits: int, seed: int) -> dict:
+    from plonky2_tpu_torch.field import ntt
+    from plonky2_tpu_torch.field.goldilocks import GF, canonical
+    rng = np.random.default_rng(seed)
+    n = 1 << log_n
+    coeffs = rng.integers(0, 1 << 64, size=(k, n), dtype=np.uint64,
+                          endpoint=False)
+    x = GF(torch.from_numpy(coeffs.view(np.int64)).cuda())
+    got = canonical(ntt.lde_cuda(x, rate_bits, 7).v).cpu().numpy().view(np.uint64)
+    want = canonical(ntt.lde_torch(x, rate_bits, 7).v).cpu().numpy().view(np.uint64)
+    err = max_abs_err(got, want)
+    if err:
+        fail(f"LDE kernel differs from lde_torch at {(k, n, rate_bits)}")
+    ms = cuda_ms(lambda: ntt.lde_cuda(x, rate_bits, 7))
+    plain_ms = cuda_ms(lambda: ntt.lde_torch(x, rate_bits, 7), reps=3)
+    big_n = n << rate_bits
+    butterflies = k * (log_n) * (big_n // 2)
+    ops = (butterflies + k * n) * MULMOD_MULS
+    bound_ms, bound_by = bound(ops, 8 * k * n + 8 * k * big_n)
+    res = {"k": k, "n": n, "rate_bits": rate_bits, "exact": True, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "g_elems_per_s": k * big_n / ms / 1e6, "max_abs_err": err}
+    line("lde", **res)
+    return res
+
+
+def phase_lde() -> dict:
+    main = lde_case(4, 20, 1, seed=2)     # the 2^20 trace commitment
+    lde_case(64, 16, 3, seed=3)           # bench.py's LDE shape
+    return {"name": "coset_lde", "route": "cuda",
+            "source": "plonky2_tpu_torch/csrc/lde.cu",
+            "replaces": "plonky2_tpu/ops/mxu_lde_pallas.py:304",
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None}
+
+
+def fib_inputs(log_rows: int, x0: int = 0, x1: int = 1):
+    from plonky2_tpu_torch.stark.fibonacci import FibonacciStark
+    stark = FibonacciStark(1 << log_rows)
+    t0 = time.perf_counter()
+    trace = stark.generate_trace(x0, x1)
+    pis = np.array([x0, x1, stark.expected_result(x0, x1)], dtype=np.uint64)
+    return stark, trace, pis, time.perf_counter() - t0
+
+
+def phase_small_proofs() -> None:
+    from plonky2_tpu_torch.field import gl64
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    from plonky2_tpu_torch.utils.serialization import stark_proof_to_bytes
+    config = StarkConfig.standard_fast_config()
+    stark, trace, pis, _ = fib_inputs(10)
+    on_gpu = stark_proof_to_bytes(prove(stark, config, trace, pis))
+    on_cpu = stark_proof_to_bytes(prove(stark, config, trace, pis, device="cpu"))
+    if on_gpu != on_cpu:
+        fail("2^10 proof bytes differ between cuda and cpu")
+    verify_stark_proof(stark, prove(stark, config, trace, pis), config, 10)
+    bad = pis.copy()
+    bad[2] = np.uint64((int(bad[2]) + 1) % gl64.ORDER_INT)
+    try:
+        verify_stark_proof(stark, prove(stark, config, trace, bad), config, 10)
+    except AssertionError:
+        rejected = True
+    else:
+        rejected = False
+    if not rejected:
+        fail("a wrong public result was accepted")
+    line("small_proofs", rows=1 << 10, bytes=len(on_gpu),
+         cuda_equals_cpu=True, wrong_result_rejected=True)
+
+
+def phase_full_prove(kernels: list):
+    """Returns each kernel's launches on the main path and its inputs."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    from plonky2_tpu_torch.utils.timing import TimingTree
+    config = StarkConfig.standard_fast_config()
+    stark, trace, pis, trace_s = fib_inputs(20)
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.reset()
+        timing = TimingTree("prove", "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prove(stark, config, trace, pis, timing=timing)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels}
+        calls = {k.symbol: k.calls for k in kernels}
+        timing.close()
+        runs.append({"seconds": secs, "launches": launches, "calls": calls,
+                     "timing": timing.as_dict(),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    for k, n in runs[-1]["launches"].items():
+        if n == 0:
+            fail(f"kernel {k} was not launched on the main path")
+    verify_stark_proof(stark, proof, config, 20)
+    line("full_prove", rows=1 << 20, trace_generation_seconds=trace_s,
+         prove_seconds_cold=runs[0]["seconds"],
+         prove_seconds_warm=runs[1]["seconds"],
+         calls=runs[-1]["calls"], launches=runs[-1]["launches"],
+         max_memory_allocated=runs[-1]["max_memory_allocated"],
+         timing=runs[-1]["timing"], verified=True)
+    return runs[-1]["launches"], (stark, config, trace, pis)
+
+
+# The __global__ functions behind each C entry point, as the profiler names them.
+KERNEL_FUNCTIONS = {"poseidon_permute": ("poseidon_kernel",),
+                    "coset_lde": ("lde_tile_kernel", "ntt_stage_kernel")}
+
+
+def phase_profile(inputs, kernels: list) -> None:
+    """The 2^20 prove once more under torch.profiler: device busy time (one
+    stream, so kernels do not overlap), the device's idle share of the wall
+    time, and device time and launches of the ported kernels and the largest
+    others."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    from plonky2_tpu_torch.stark.prover import prove
+    stark, config, trace, pis = inputs
+    for k in kernels:
+        k.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prove(stark, config, trace, pis)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = collections.Counter()
+    count = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+    busy_ms = sum(us.values()) / 1e3
+    if busy_ms == 0:
+        fail("the profiler recorded no device time")
+    ported = {}
+    for k in kernels:
+        names = [n for n in us if any(f in n for f in KERNEL_FUNCTIONS[k.symbol])]
+        ported[k.symbol] = {"device_ms": sum(us[n] for n in names) / 1e3,
+                            "profiled_launches": sum(count[n] for n in names),
+                            "counted_launches": k.launches}
+    line("profile", rows=1 << 20, wall_ms_profiled=wall_ms,
+         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+         device_launches=sum(count.values()), ported=ported,
+         top_kernels=[{"name": n[:90], "ms": t / 1e3, "count": count[n]}
+                      for n, t in us.most_common(12)])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from plonky2_tpu_torch.field.ntt import COSET_LDE
+    from plonky2_tpu_torch.hash.poseidon import POSEIDON
+
+    phase_card()
+    phase_build()
+    entries = [phase_poseidon(), phase_lde()]
+    phase_small_proofs()
+    kernels = [POSEIDON, COSET_LDE]
+    launches, inputs = phase_full_prove(kernels)
+    phase_profile(inputs, kernels)
+    entries[0]["launches"] = launches[POSEIDON.symbol]
+    entries[1]["launches"] = launches[COSET_LDE.symbol]
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""Fiat-Shamir challenger: duplex Poseidon sponge in overwrite mode.
+
+Host twin of reference plonky2/src/iop/challenger.rs:16-160.  Challenges
+drive host-side control flow (query indices, PoW checks), so the challenger
+runs on numpy u64; each duplex is one width-12 Poseidon permutation.
+
+Transcript-order details that matter for byte-compat with the reference:
+  * absorption auto-duplexes when the input buffer reaches RATE=8;
+  * ``get_challenge`` duplexes if inputs are pending or outputs exhausted;
+  * outputs are state[0..8] and are popped from the END (Vec::pop), so
+    challenges stream as state[7], state[6], ..., state[0].
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..field import gl64
+from ..hash.poseidon import permute_np
+
+RATE = 8
+WIDTH = 12
+
+
+def permutation_for(hasher: str):
+    """The challenger duplex core of a hasher config (plonk/config.rs:28)."""
+    if hasher != "poseidon":
+        raise NotImplementedError(
+            f"hasher {hasher!r}: the keccak configs are ported with the "
+            "multi-table STARK slice")
+    return permute_np
+
+
+class Challenger:
+    def __init__(self, permutation=None):
+        self.state = np.zeros(WIDTH, dtype=np.uint64)
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+        self._permute = permutation or permute_np
+
+    # -- observe -----------------------------------------------------------
+    def observe_element(self, x) -> None:
+        self.output_buffer.clear()
+        self.input_buffer.append(int(x) % gl64.ORDER_INT)
+        if len(self.input_buffer) == RATE:
+            self._duplexing()
+
+    def observe_elements(self, xs) -> None:
+        for x in np.asarray(xs, dtype=np.uint64).reshape(-1):
+            self.observe_element(x)
+
+    def observe_extension_element(self, x) -> None:
+        """x: (2,) base-field array for D=2."""
+        self.observe_elements(np.asarray(x, dtype=np.uint64))
+
+    def observe_hash(self, h) -> None:
+        self.observe_elements(np.asarray(h, dtype=np.uint64).reshape(4))
+
+    def observe_cap(self, cap) -> None:
+        data = cap.data if hasattr(cap, "data") else np.asarray(cap)
+        for row in np.asarray(data, dtype=np.uint64).reshape(-1, 4):
+            self.observe_hash(row)
+
+    # -- squeeze -----------------------------------------------------------
+    def get_challenge(self) -> np.uint64:
+        if self.input_buffer or not self.output_buffer:
+            self._duplexing()
+        return np.uint64(self.output_buffer.pop())
+
+    def get_n_challenges(self, n: int) -> np.ndarray:
+        return np.array([self.get_challenge() for _ in range(n)], dtype=np.uint64)
+
+    def get_extension_challenge(self) -> np.ndarray:
+        """(2,) base-field components of one GF(p^2) challenge."""
+        return self.get_n_challenges(2)
+
+    # -- internals -----------------------------------------------------------
+    def _duplexing(self) -> None:
+        k = len(self.input_buffer)
+        if k:
+            self.state = self.state.copy()
+            self.state[:k] = np.array(self.input_buffer, dtype=np.uint64)
+            self.input_buffer.clear()
+        self.state = self._permute(self.state)
+        self.output_buffer = [int(x) for x in gl64.to_canonical(self.state[:RATE])]

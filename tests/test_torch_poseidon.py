@@ -1,0 +1,94 @@
+"""The port's Poseidon, hashing and Merkle tree against the JAX package's
+permute, hashing and Merkle modules and its host twin permute_np, on the CPU,
+exactly.
+
+The JAX package's Pallas round-pipeline twin (ops/poseidon_pallas.py
+permute_cols_jnp) is not called here: its fully unrolled graph takes XLA:CPU
+many minutes to compile.  tests/test_poseidon_pallas.py holds it against
+permute_np, which these tests hold the port against.
+"""
+
+import numpy as np
+import pytest
+
+from plonky2_tpu.field import gl64 as jgl64
+from plonky2_tpu.field.goldilocks import GF as JGF
+from plonky2_tpu.hash import hashing as jhashing
+from plonky2_tpu.hash.merkle import MerkleTree as JMerkleTree
+from plonky2_tpu.hash.poseidon import permute as jpermute
+from plonky2_tpu.hash.poseidon import permute_np as jpermute_np
+from plonky2_tpu_torch.field.goldilocks import GF
+from plonky2_tpu_torch.hash import hashing
+from plonky2_tpu_torch.hash import poseidon
+from plonky2_tpu_torch.hash.merkle import (MerkleTree, verify_merkle_proof_to_cap,
+                                          verify_merkle_proofs_to_cap)
+
+P = jgl64.ORDER_INT
+
+
+@pytest.mark.parametrize("twin", ["jax", "host"])
+def test_permute_matches_jax_and_host(rng, twin):
+    states = rng.integers(0, 1 << 64, size=(256, 12), dtype=np.uint64)
+    states[0] = 0
+    states[1] = P + np.arange(12, dtype=np.uint64)      # noncanonical lanes
+    got = poseidon.permute(GF.from_u64(states, "cpu")).to_u64()
+    if twin == "jax":
+        # 8 states (the Merkle tests' batch): each new batch shape costs the
+        # JAX side a compile; the host twin below covers all 256
+        got = got[:8]
+        want = jpermute(JGF.from_u64(states[:8])).to_u64()
+    else:
+        want = jgl64.to_canonical(jpermute_np(states))
+        assert np.array_equal(jgl64.to_canonical(poseidon.permute_np(states)), got)
+    assert np.array_equal(got, want)
+
+
+def test_permute_dispatch_is_by_device(rng):
+    states = rng.integers(0, P, size=(3, 2, 12), dtype=np.uint64)
+    before = poseidon.POSEIDON.launches
+    got = poseidon.permute(GF.from_u64(states, "cpu"))
+    assert got.shape == (3, 2, 12)
+    assert poseidon.POSEIDON.launches == before        # CPU: plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        poseidon.permute_cuda(GF.from_u64(states.reshape(6, 12), "cpu").v)
+
+
+def test_hashing_matches_jax_and_host(rng):
+    for length in [1, 4, 7, 8, 9, 16, 135]:
+        x = rng.integers(0, P, size=(2, length), dtype=np.uint64)
+        got = hashing.hash_no_pad(GF.from_u64(x, "cpu")).to_u64()
+        assert np.array_equal(got, jhashing.hash_no_pad_np(x))
+        assert np.array_equal(got, hashing.hash_no_pad_np(x))
+        assert np.array_equal(hashing.hash_or_noop(GF.from_u64(x, "cpu")).to_u64(),
+                              jhashing.hash_or_noop_np(x))
+    # batch 2 throughout: the JAX side compiles one permutation shape
+    x = rng.integers(0, P, size=(2, 9), dtype=np.uint64)
+    assert np.array_equal(hashing.hash_no_pad(GF.from_u64(x, "cpu")).to_u64(),
+                          jhashing.hash_no_pad(JGF.from_u64(x)).to_u64())
+    a = rng.integers(0, P, size=(2, 4), dtype=np.uint64)
+    b = rng.integers(0, P, size=(2, 4), dtype=np.uint64)
+    got = hashing.compress(GF.from_u64(a, "cpu"), GF.from_u64(b, "cpu")).to_u64()
+    assert np.array_equal(got, jhashing.compress(JGF.from_u64(a), JGF.from_u64(b)).to_u64())
+    assert np.array_equal(got, hashing.compress_np(a, b))
+
+
+@pytest.mark.parametrize("leaf_len,cap_height", [(7, 2), (4, 0)])
+def test_merkle_tree_matches_jax(rng, leaf_len, cap_height):
+    n = 8
+    leaves = rng.integers(0, P, size=(n, leaf_len), dtype=np.uint64)
+    tree = MerkleTree(GF.from_u64(leaves, "cpu"), cap_height)
+    jtree = JMerkleTree(JGF.from_u64(leaves), cap_height)
+    assert np.array_equal(tree.cap.data, jtree.cap.data)
+    idx = np.array([0, 1, 5, 7, 5])
+    got_leaves, got_sibs = tree.open(idx)
+    want_leaves, want_sibs = jtree.open(idx)
+    assert np.array_equal(got_leaves, want_leaves)
+    assert np.array_equal(got_sibs, want_sibs)
+    for i in idx:
+        assert verify_merkle_proof_to_cap(leaves[i], int(i), tree.cap, tree.prove(int(i)))
+        assert np.array_equal(tree.get_leaf(int(i)), leaves[i])
+    assert not verify_merkle_proof_to_cap(leaves[6], 5, tree.cap, tree.prove(5))
+    assert verify_merkle_proofs_to_cap(got_leaves, idx, tree.cap, got_sibs)
+    if got_sibs.size:
+        got_sibs[2, -1, 0] ^= np.uint64(1)
+        assert not verify_merkle_proofs_to_cap(got_leaves, idx, tree.cap, got_sibs)
