@@ -9,18 +9,34 @@ Phases, one line each:
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc versions;
   1. build of every CUDA kernel in plonky2_tpu_torch/csrc (nvcc, sm_90a);
   2. Poseidon kernel against its plain torch version on 2^17 states (exact);
-  3. LDE kernel against its plain torch version at (4, 2^20) r=1 and
-     (64, 2^16) r=3 (exact);
-  4. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
+  3. LDE kernel (lde.cu) against its plain torch version at the plonk wires'
+     (135, 2^15) r=3, (64, 2^16) r=3 and (4, 2^20) r=1 (exact);
+  4. NTT kernel (ntt.cu) against the plain *_torch transforms: intt of
+     (135, 2^15), coset_intt of (2, 2^18), coset_ntt of (2, 2^20), and ntt
+     of (1, 2^23), the three-pass plan (exact);
+  5. large-n LDE kernel (ntt.cu coset_lde3) against lde_torch at (4, 2^20)
+     r=1, and at phase 3's (135, 2^15) and (64, 2^16) r=3 (exact);
+  6. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
      proof bytes, and a wrong public result is rejected by the verifier;
-  5. the slice at full size: a 2^20-row Fibonacci STARK under
+  7. an m = 2 matrix-multiplication plonk proof (standard_recursion_config)
+     proved on cuda and on cpu gives the same proof bytes, the verifier
+     accepts it and rejects a tampered public input; an m = 2 proof under
+     standard_recursion_zk_config verifies;
+  8. the STARK path at full size: a 2^20-row Fibonacci STARK under
      StarkConfig.standard_fast_config() proved twice on cuda and verified,
      with each kernel's calls and kernel launches on that path;
-  6. the same prove once more under torch.profiler: device busy time, the
+  9. the same prove once more under torch.profiler: device busy time, the
      device's idle share of the wall time, and device time by kernel;
-  7. a JSON line with every kernel's launches, times and bound.
-The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
-before it.  Times are medians of CUDA-event timings after a warm-up.
+ 10. the plonk path at full size: the m = 64 matrix-multiplication circuit
+     (degree 2^15, standard_recursion_config) built once on cuda, proved
+     twice (cold, warm) and verified, with per-phase times, peak memory and
+     each kernel's calls and launches on that path;
+ 11. the warm plonk prove once more under torch.profiler;
+ 12. a JSON line with every kernel's launches, times and bound.
+A kernel that a path should run and that launched no time there fails the
+run.  The last line is {"ok": true, "device": {...}}.  Any failure exits
+non-zero before it.  Times are medians of CUDA-event timings after a
+warm-up.
 """
 
 from __future__ import annotations
@@ -145,7 +161,7 @@ def sass_multiplies(so_path) -> dict:
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            name = re.search(r"[a-z_]+_kernel", m.group(1))
+            name = re.search(r"[a-z][a-z0-9_]*_kernel", m.group(1))
             fn = name.group(0) if name else m.group(1)
             out[fn] = {}
             continue
@@ -185,20 +201,28 @@ def phase_poseidon() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def lde_case(k: int, log_n: int, rate_bits: int, seed: int) -> dict:
-    from plonky2_tpu_torch.field import ntt
-    from plonky2_tpu_torch.field.goldilocks import GF, canonical
+def random_gf(shape, seed: int):
+    from plonky2_tpu_torch.field.goldilocks import GF
     rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64, endpoint=False)
+    return GF(torch.from_numpy(vals.view(np.int64)).cuda())
+
+
+def host_canonical(x) -> np.ndarray:
+    from plonky2_tpu_torch.field.goldilocks import canonical
+    return canonical(x.v).cpu().numpy().view(np.uint64)
+
+
+def lde_case(phase: str, kernel, k: int, log_n: int, rate_bits: int,
+             seed: int) -> dict:
+    from plonky2_tpu_torch.field import ntt
     n = 1 << log_n
-    coeffs = rng.integers(0, 1 << 64, size=(k, n), dtype=np.uint64,
-                          endpoint=False)
-    x = GF(torch.from_numpy(coeffs.view(np.int64)).cuda())
-    got = canonical(ntt.lde_cuda(x, rate_bits, 7).v).cpu().numpy().view(np.uint64)
-    want = canonical(ntt.lde_torch(x, rate_bits, 7).v).cpu().numpy().view(np.uint64)
-    err = max_abs_err(got, want)
+    x = random_gf((k, n), seed)
+    err = max_abs_err(host_canonical(kernel(x, rate_bits, 7)),
+                      host_canonical(ntt.lde_torch(x, rate_bits, 7)))
     if err:
-        fail(f"LDE kernel differs from lde_torch at {(k, n, rate_bits)}")
-    ms = cuda_ms(lambda: ntt.lde_cuda(x, rate_bits, 7))
+        fail(f"{phase} kernel differs from lde_torch at {(k, n, rate_bits)}")
+    ms = cuda_ms(lambda: kernel(x, rate_bits, 7))
     plain_ms = cuda_ms(lambda: ntt.lde_torch(x, rate_bits, 7), reps=3)
     big_n = n << rate_bits
     butterflies = k * (log_n) * (big_n // 2)
@@ -207,19 +231,79 @@ def lde_case(k: int, log_n: int, rate_bits: int, seed: int) -> dict:
     res = {"k": k, "n": n, "rate_bits": rate_bits, "exact": True, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "g_elems_per_s": k * big_n / ms / 1e6, "max_abs_err": err}
-    line("lde", **res)
+    line(phase, **res)
     return res
 
 
+def entry(name: str, source: str, replaces: str, res: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": None}
+
+
 def phase_lde() -> dict:
-    main = lde_case(4, 20, 1, seed=2)     # the 2^20 trace commitment
-    lde_case(64, 16, 3, seed=3)           # bench.py's LDE shape
-    return {"name": "coset_lde", "route": "cuda",
-            "source": "plonky2_tpu_torch/csrc/lde.cu",
-            "replaces": "plonky2_tpu/ops/mxu_lde_pallas.py:304",
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None}
+    from plonky2_tpu_torch.field import ntt
+    main = lde_case("lde", ntt.lde_cuda, 135, 15, 3, seed=2)  # plonk wires
+    lde_case("lde", ntt.lde_cuda, 64, 16, 3, seed=3)    # bench.py's LDE shape
+    lde_case("lde", ntt.lde_cuda, 4, 20, 1, seed=4)     # beside lde3's shape
+    return entry("coset_lde", "plonky2_tpu_torch/csrc/lde.cu",
+                 "plonky2_tpu/ops/mxu_lde_pallas.py:304", main)
+
+
+def ntt_case(op: str, k: int, log_n: int, seed: int) -> dict:
+    """One of the transforms through the NTT kernel against its plain
+    version.  The bound counts the radix-2 butterflies' multiplies plus one
+    scaling multiply per element (1/n, the coset shift or both)."""
+    from plonky2_tpu_torch.field import ntt
+    n = 1 << log_n
+    x = random_gf((k, n), seed)
+    kernel = {"ntt": lambda: ntt.ntt(x),
+              "intt": lambda: ntt.intt(x),
+              "coset_intt": lambda: ntt.coset_intt(x, 7),
+              "coset_ntt": lambda: ntt.coset_ntt(x, 7)}[op]
+    plain = {"ntt": lambda: ntt.ntt_torch(x),
+             "intt": lambda: ntt.intt_torch(x),
+             "coset_intt": lambda: ntt.coset_intt_torch(x, 7),
+             "coset_ntt": lambda: ntt.coset_ntt_torch(x, 7)}[op]
+    before = ntt.NTT.launches
+    got = kernel()
+    launched = ntt.NTT.launches - before
+    err = max_abs_err(host_canonical(got), host_canonical(plain()))
+    if err or launched == 0:
+        fail(f"NTT kernel differs from {op}_torch at {(k, n)} "
+             f"(launches {launched})")
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, reps=3)
+    ops = (k * (n // 2) * log_n + k * n) * MULMOD_MULS
+    bound_ms, bound_by = bound(ops, 16 * k * n)
+    res = {"op": op, "k": k, "n": n, "exact": True,
+           "launches_per_call": launched, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "g_elems_per_s": k * n / ms / 1e6, "max_abs_err": err}
+    line("ntt", **res)
+    return res
+
+
+def phase_ntt() -> dict:
+    ntt_case("intt", 135, 15, seed=5)          # plonk wires from_values
+    main = ntt_case("coset_intt", 2, 18, seed=6)   # plonk quotient
+    ntt_case("coset_ntt", 2, 20, seed=7)       # STARK opening quotients
+    ntt_case("ntt", 1, 23, seed=11)            # the three-pass plan (> 2^22)
+    return entry("ntt", "plonky2_tpu_torch/csrc/ntt.cu",
+                 "plonky2_tpu/ops/mxu_ntt_pallas.py:203", main)
+
+
+def phase_lde3() -> dict:
+    from plonky2_tpu_torch.field import ntt
+    main = lde_case("lde3", ntt.lde3_cuda, 4, 20, 1, seed=8)  # 2^20 trace
+    # lde.cu's shapes of phase 3, to time the two LDE kernels side by side
+    # where ntt.lde sends work to lde.cu
+    lde_case("lde3", ntt.lde3_cuda, 135, 15, 3, seed=2)
+    lde_case("lde3", ntt.lde3_cuda, 64, 16, 3, seed=3)
+    return entry("coset_lde3", "plonky2_tpu_torch/csrc/ntt.cu",
+                 "plonky2_tpu/ops/mxu_lde3_pallas.py:249", main)
 
 
 def fib_inputs(log_rows: int, x0: int = 0, x1: int = 1):
@@ -258,14 +342,61 @@ def phase_small_proofs() -> None:
          cuda_equals_cpu=True, wrong_result_rejected=True)
 
 
-def phase_full_prove(kernels: list):
-    """Returns each kernel's launches on the main path and its inputs."""
-    from plonky2_tpu_torch.stark.config import StarkConfig
-    from plonky2_tpu_torch.stark.prover import prove
-    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+def matmul_inputs(m: int, seed: int):
+    from plonky2_tpu_torch.field import gl64
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, gl64.ORDER_INT, size=(m, m), dtype=np.uint64),
+            rng.integers(0, gl64.ORDER_INT, size=(m, m), dtype=np.uint64))
+
+
+def phase_small_plonk() -> None:
+    """m = 2 matmul plonk proofs: cuda and cpu bytes equal, the verifier
+    accepts and rejects a tampered public input; a zk proof verifies."""
+    from plonky2_tpu_torch.field import gl64
+    from plonky2_tpu_torch.models.matrix_mul import (build_matrix_mul_circuit,
+                                                     matrix_mul_witness)
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
+    a, b = matmul_inputs(2, seed=9)
+    proofs, datas = {}, {}
+    for device in ("cuda", "cpu"):
+        data, at, bt = build_matrix_mul_circuit(2, device=device)
+        data.prover_only.schedule.rng_seed = 1    # the PI gate's random wires
+        proofs[device] = data.prove(matrix_mul_witness(at, bt, a, b))
+        datas[device] = data
+    on_gpu = proof_with_pis_to_bytes(proofs["cuda"])
+    if on_gpu != proof_with_pis_to_bytes(proofs["cpu"]):
+        fail("m = 2 plonk proof bytes differ between cuda and cpu")
+    if not np.array_equal(datas["cuda"].verifier_only.circuit_digest,
+                          datas["cpu"].verifier_only.circuit_digest):
+        fail("m = 2 circuit digests differ between cuda and cpu")
+    datas["cuda"].verify(proofs["cuda"])
+    proof = proofs["cuda"]
+    proof.public_inputs = proof.public_inputs.copy()
+    proof.public_inputs[2] = (int(proof.public_inputs[2]) + 1) % gl64.ORDER_INT
+    try:
+        datas["cuda"].verify(proof)
+    except AssertionError:
+        pass
+    else:
+        fail("a tampered plonk public input was accepted")
+    zk_data, at, bt = build_matrix_mul_circuit(
+        2, CircuitConfig.standard_recursion_zk_config(), device="cuda")
+    t0 = time.perf_counter()
+    zk_proof = zk_data.prove(matrix_mul_witness(at, bt, a, b))
+    torch.cuda.synchronize()
+    zk_secs = time.perf_counter() - t0
+    zk_data.verify(zk_proof)
+    line("small_plonk", m=2, bytes=len(on_gpu), cuda_equals_cpu=True,
+         tampered_public_input_rejected=True, zk_degree=zk_data.common.degree(),
+         zk_prove_seconds=zk_secs, zk_verified=True)
+
+
+def run_path(path: str, prove, kernels: list, required: list) -> dict:
+    """prove(timing) twice (cold, warm), each with every kernel count set to
+    0 just before it and read just after; fails if a kernel of the path
+    launched no time in the warm run."""
     from plonky2_tpu_torch.utils.timing import TimingTree
-    config = StarkConfig.standard_fast_config()
-    stark, trace, pis, trace_s = fib_inputs(20)
     runs = []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
@@ -274,7 +405,7 @@ def phase_full_prove(kernels: list):
         timing = TimingTree("prove", "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = prove(stark, config, trace, pis, timing=timing)
+        proof = prove(timing)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k.symbol: k.launches for k in kernels}
@@ -283,39 +414,90 @@ def phase_full_prove(kernels: list):
         runs.append({"seconds": secs, "launches": launches, "calls": calls,
                      "timing": timing.as_dict(),
                      "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    for k, n in runs[-1]["launches"].items():
-        if n == 0:
-            fail(f"kernel {k} was not launched on the main path")
-    verify_stark_proof(stark, proof, config, 20)
+    for k in required:
+        if runs[-1]["launches"][k.symbol] == 0:
+            fail(f"kernel {k.symbol} was not launched on the {path} path")
+    return {"proof": proof, "cold": runs[0], "warm": runs[1]}
+
+
+def phase_full_prove(kernels: list, required: list):
+    """The 2^20-row STARK path; returns each kernel's launches on it and
+    its inputs."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    config = StarkConfig.standard_fast_config()
+    stark, trace, pis, trace_s = fib_inputs(20)
+    res = run_path("stark", lambda timing: prove(stark, config, trace, pis,
+                                                timing=timing),
+                   kernels, required)
+    verify_stark_proof(stark, res["proof"], config, 20)
+    warm = res["warm"]
     line("full_prove", rows=1 << 20, trace_generation_seconds=trace_s,
-         prove_seconds_cold=runs[0]["seconds"],
-         prove_seconds_warm=runs[1]["seconds"],
-         calls=runs[-1]["calls"], launches=runs[-1]["launches"],
-         max_memory_allocated=runs[-1]["max_memory_allocated"],
-         timing=runs[-1]["timing"], verified=True)
-    return runs[-1]["launches"], (stark, config, trace, pis)
+         prove_seconds_cold=res["cold"]["seconds"],
+         prove_seconds_warm=warm["seconds"],
+         calls=warm["calls"], launches=warm["launches"],
+         max_memory_allocated=warm["max_memory_allocated"],
+         timing=warm["timing"], verified=True)
+    return warm["launches"], lambda: prove(stark, config, trace, pis)
+
+
+def phase_plonk(kernels: list, required: list):
+    """The m = 64 matmul plonk path: build once, prove twice, verify; returns
+    each kernel's launches on it and the warm prove."""
+    from plonky2_tpu_torch.models.matrix_mul import (build_matrix_mul_circuit,
+                                                     expected_product,
+                                                     matrix_mul_witness)
+    m = 64
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data, at, bt = build_matrix_mul_circuit(m, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_mem = torch.cuda.max_memory_allocated()
+    a, b = matmul_inputs(m, seed=10)
+    pw = matrix_mul_witness(at, bt, a, b)
+    res = run_path("plonk", lambda timing: data.prove(pw, timing), kernels,
+                   required)
+    proof = res["proof"]
+    t0 = time.perf_counter()
+    data.verify(proof)
+    verify_s = time.perf_counter() - t0
+    c = proof.public_inputs.reshape(m, m, 3)[:, :, 2]
+    if not np.array_equal(c, expected_product(a, b)):
+        fail("the m = 64 proof's public product differs from A * B")
+    warm = res["warm"]
+    line("plonk_prove", m=m, degree=data.common.degree(),
+         gates=[g.id() for g in data.common.gates],
+         build_seconds=build_s, build_max_memory_allocated=build_mem,
+         prove_seconds_cold=res["cold"]["seconds"],
+         prove_seconds_warm=warm["seconds"], verify_seconds=verify_s,
+         calls=warm["calls"], launches=warm["launches"],
+         max_memory_allocated=warm["max_memory_allocated"],
+         timing=warm["timing"], verified=True, product_checked=True)
+    return warm["launches"], lambda: data.prove(pw)
 
 
 # The __global__ functions behind each C entry point, as the profiler names them.
 KERNEL_FUNCTIONS = {"poseidon_permute": ("poseidon_kernel",),
-                    "coset_lde": ("lde_tile_kernel", "ntt_stage_kernel")}
+                    "coset_lde": ("lde_tile_kernel", "ntt_stage_kernel"),
+                    "ntt": ("dft_kernel",),
+                    "coset_lde3": ("lde3_kernel",)}
 
 
-def phase_profile(inputs, kernels: list) -> None:
-    """The 2^20 prove once more under torch.profiler: device busy time (one
-    stream, so kernels do not overlap), the device's idle share of the wall
-    time, and device time and launches of the ported kernels and the largest
+def phase_profile(path: str, prove, kernels: list) -> None:
+    """One more prove under torch.profiler: device busy time (one stream,
+    so kernels do not overlap), the device's idle share of the wall time,
+    and device time and launches of the ported kernels and the largest
     others."""
     import collections
     from torch.profiler import ProfilerActivity, profile
-    from plonky2_tpu_torch.stark.prover import prove
-    stark, config, trace, pis = inputs
     for k in kernels:
         k.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prove(stark, config, trace, pis)
+        prove()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     us = collections.Counter()
@@ -333,7 +515,7 @@ def phase_profile(inputs, kernels: list) -> None:
         ported[k.symbol] = {"device_ms": sum(us[n] for n in names) / 1e3,
                             "profiled_launches": sum(count[n] for n in names),
                             "counted_launches": k.launches}
-    line("profile", rows=1 << 20, wall_ms_profiled=wall_ms,
+    line("profile", path=path, wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
          device_launches=sum(count.values()), ported=ported,
          top_kernels=[{"name": n[:90], "ms": t / 1e3, "count": count[n]}
@@ -345,18 +527,26 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from plonky2_tpu_torch.field.ntt import COSET_LDE
+    from plonky2_tpu_torch.field.ntt import COSET_LDE, COSET_LDE3, NTT
     from plonky2_tpu_torch.hash.poseidon import POSEIDON
 
     phase_card()
     phase_build()
-    entries = [phase_poseidon(), phase_lde()]
+    entries = [phase_poseidon(), phase_lde(), phase_ntt(), phase_lde3()]
     phase_small_proofs()
-    kernels = [POSEIDON, COSET_LDE]
-    launches, inputs = phase_full_prove(kernels)
-    phase_profile(inputs, kernels)
-    entries[0]["launches"] = launches[POSEIDON.symbol]
-    entries[1]["launches"] = launches[COSET_LDE.symbol]
+    phase_small_plonk()
+    kernels = [POSEIDON, COSET_LDE, NTT, COSET_LDE3]
+    stark_launches, stark_prove = phase_full_prove(
+        kernels, required=[POSEIDON, NTT, COSET_LDE3])
+    phase_profile("stark 2^20 rows", stark_prove, kernels)
+    plonk_launches, plonk_prove = phase_plonk(
+        kernels, required=[POSEIDON, COSET_LDE, NTT])
+    phase_profile("plonk m=64", plonk_prove, kernels)
+    for e, k in zip(entries, kernels):
+        by_path = {"stark_2^20": stark_launches[k.symbol],
+                   "plonk_m64": plonk_launches[k.symbol]}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,20 @@
 """Number-theoretic transform over Goldilocks on torch.
 
-Twin of reference field/src/fft.rs:52,99,169: a radix-2 DIT on bit-reversed
-input, one vectorised torch pass per stage over a (batch..., n) GF array.
-Twiddles come from one table per (log n, direction, device), tw[i] = w_n^i
-for i < n/2; stage s uses every (n / 2^s)-th entry.
+``ntt``, ``intt``, ``coset_ntt`` and ``coset_intt`` transform the last axis
+of a (batch..., n) GF array, natural order in and out.  A CUDA tensor goes
+to the hand-written kernel csrc/ntt.cu (``ntt_cuda``: a four- or three-step
+composition of a shared-memory DFT, two or three launches per transform); a
+CPU tensor to the plain torch versions ``*_torch``, the twin of reference
+field/src/fft.rs:52,99,169: a radix-2 DIT on bit-reversed input, one
+vectorised torch pass per stage.  ``dft_torch`` is the plain version of the
+kernel's building block (a DFT along axis 0 with an optional twiddle
+post-multiply).  Twiddles come from one table per (log n, direction,
+device), tw[i] = w_n^i for i < n/2.
 
-``lde`` is the commitment LDE.  A CUDA tensor goes to the hand-written
-kernel csrc/lde.cu (``lde_cuda``); a CPU tensor to the plain torch version
-``lde_torch``.  Extension (GF2) codewords transform componentwise.
+``lde`` is the commitment LDE.  A CUDA tensor goes to csrc/lde.cu
+(``lde_cuda``) for n <= 2^17 and to csrc/ntt.cu's ``coset_lde3``
+(``lde3_cuda``) above; a CPU tensor to ``lde_torch``, the plain version of
+both.  Extension (GF2) codewords transform componentwise.
 """
 
 from __future__ import annotations
@@ -27,6 +34,16 @@ from .goldilocks import GF, add, mul, sub
 COSET_LDE = CudaKernel("lde.cu", "coset_lde", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+NTT = CudaKernel("ntt.cu", "ntt", [ctypes.c_void_p] * 6 + [
+    ctypes.c_int64, ctypes.c_int])
+COSET_LDE3 = CudaKernel("ntt.cu", "coset_lde3", [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+
+# lde.cu below this many coefficients, ntt.cu's coset_lde3 above (the split
+# of plonky2_tpu/fri/oracle.py:138-139 between mxu_lde and mxu_lde3)
+LDE3_MIN_LOG_N = 18
+# the largest transform the kernel's three-step plan covers
+MAX_LOG_N = 33
 
 
 @lru_cache(maxsize=32)
@@ -43,6 +60,15 @@ def _twiddle_table(log_n: int, inverse: bool, device: torch.device) -> torch.Ten
 def _coset_table(shift: int, n: int, device: torch.device) -> torch.Tensor:
     """[shift^0, ..., shift^(n-1)]."""
     return torch.from_numpy(gl64.powers(shift, n).view(np.int64).copy()).to(device)
+
+
+@lru_cache(maxsize=32)
+def _inverse_scale_table(shift: int, n: int, device: torch.device) -> torch.Tensor:
+    """[n^-1 shift^-k for k < n]: the inverse transform's 1/n and the inverse
+    coset shift in one table."""
+    shift_inv = pow(shift, gl64.ORDER_INT - 2, gl64.ORDER_INT)
+    table = gl64.mul(gl64.powers(shift_inv, n), np.uint64(_n_inv(n)))
+    return torch.from_numpy(table.view(np.int64).copy()).to(device)
 
 
 @lru_cache(maxsize=32)
@@ -71,30 +97,102 @@ def ntt_br(x: GF, start_stage: int = 0, inverse: bool = False) -> GF:
     return GF(v)
 
 
-def ntt(coeffs: GF) -> GF:
+def ntt_torch(coeffs: GF) -> GF:
     """values[i] = poly(g^i) over the order-n subgroup, natural order."""
     n = coeffs.shape[-1]
     return ntt_br(coeffs.take(_brp(n, coeffs.device), axis=-1))
 
 
-def intt(values: GF) -> GF:
+def intt_torch(values: GF) -> GF:
     """Inverse NTT: values over the subgroup -> coefficients."""
     n = values.shape[-1]
     out = ntt_br(values.take(_brp(n, values.device), axis=-1), inverse=True)
     return out * _n_inv(n)
 
 
-def coset_ntt(coeffs: GF, shift: int) -> GF:
+def coset_ntt_torch(coeffs: GF, shift: int) -> GF:
     """Evaluate on the coset shift*H (reference polynomial/mod.rs coset_fft)."""
     n = coeffs.shape[-1]
-    return ntt(GF(mul(coeffs.v, _coset_table(shift, n, coeffs.device))))
+    return ntt_torch(GF(mul(coeffs.v, _coset_table(shift, n, coeffs.device))))
+
+
+def coset_intt_torch(values: GF, shift: int) -> GF:
+    """Inverse of coset_ntt_torch."""
+    n = values.shape[-1]
+    shift_inv = pow(shift, gl64.ORDER_INT - 2, gl64.ORDER_INT)
+    return GF(mul(intt_torch(values).v,
+                  _coset_table(shift_inv, n, values.device)))
+
+
+def dft_torch(x: GF, twiddles: GF | None = None) -> GF:
+    """Plain version of the kernel's building block, the contract of
+    plonky2_tpu/ops/mxu_ntt_pallas.py mxu_dft: Y = W x along axis 0 of an
+    (n1, m) array, W[k, j] = w_n1^(jk), then an optional elementwise
+    post-multiply by (n1, m) twiddles."""
+    y = ntt_torch(x.transpose(1, 0)).transpose(1, 0)
+    return y if twiddles is None else y * twiddles
+
+
+def ntt_cuda(x: torch.Tensor, inverse: bool = False,
+             scale_in: torch.Tensor | None = None,
+             scale_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The transform of the last axis of x on the card through csrc/ntt.cu,
+    natural order in and out: x is multiplied by ``scale_in`` (n entries) as
+    it is loaded and the result by ``scale_out`` as it is stored.
+
+    Replaces the TPU kernel plonky2_tpu/ops/mxu_ntt_pallas.py mxu_dft (and
+    mxu_ntt, which composes it).  On the H100 it is bound by moving its input
+    and output once, with the butterflies' integer multiplies close behind;
+    the kernel moves the data once per pass (two passes up to 2^22 points,
+    three above)."""
+    check_cuda_tensor(x, "ntt input")
+    n = x.shape[-1]
+    log_n = log2_strict(n)
+    if log_n > MAX_LOG_N:
+        raise ValueError(f"ntt: 2^{log_n} points exceed the kernel's 2^{MAX_LOG_N}")
+    batch = x.numel() // n if n else 0
+    out = torch.empty_like(x)
+    tmp = torch.empty_like(x) if log_n > 11 else out
+    tw = _twiddle_table(log_n, inverse, x.device)
+    NTT(x.data_ptr(), out.data_ptr(), tmp.data_ptr(), tw.data_ptr(),
+        None if scale_in is None else scale_in.data_ptr(),
+        None if scale_out is None else scale_out.data_ptr(), batch, log_n)
+    return out
+
+
+def ntt(coeffs: GF) -> GF:
+    """values[i] = poly(g^i) over the order-n subgroup, natural order."""
+    if coeffs.v.is_cuda:
+        return GF(ntt_cuda(coeffs.v.contiguous()))
+    return ntt_torch(coeffs)
+
+
+def intt(values: GF) -> GF:
+    """Inverse NTT: values over the subgroup -> coefficients."""
+    if values.v.is_cuda:
+        n = values.shape[-1]
+        return GF(ntt_cuda(values.v.contiguous(), inverse=True,
+                           scale_out=_inverse_scale_table(1, n, values.device)))
+    return intt_torch(values)
+
+
+def coset_ntt(coeffs: GF, shift: int) -> GF:
+    """Evaluate on the coset shift*H (reference polynomial/mod.rs coset_fft)."""
+    if coeffs.v.is_cuda:
+        n = coeffs.shape[-1]
+        return GF(ntt_cuda(coeffs.v.contiguous(),
+                           scale_in=_coset_table(shift, n, coeffs.device)))
+    return coset_ntt_torch(coeffs, shift)
 
 
 def coset_intt(values: GF, shift: int) -> GF:
     """Inverse of coset_ntt."""
-    n = values.shape[-1]
-    shift_inv = pow(shift, gl64.ORDER_INT - 2, gl64.ORDER_INT)
-    return GF(mul(intt(values).v, _coset_table(shift_inv, n, values.device)))
+    if values.v.is_cuda:
+        n = values.shape[-1]
+        return GF(ntt_cuda(values.v.contiguous(), inverse=True,
+                           scale_out=_inverse_scale_table(shift, n,
+                                                          values.device)))
+    return coset_intt_torch(values, shift)
 
 
 def lde_torch(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
@@ -135,11 +233,50 @@ def lde_cuda(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
     return GF(out)
 
 
+def lde3_cuda(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
+    """The LDE on the card through csrc/ntt.cu coset_lde3, same contract as
+    lde_torch, for n > 2^17.
+
+    Replaces the TPU kernel plonky2_tpu/ops/mxu_lde3_pallas.py mxu_lde3.
+    On the H100 it is bound by moving its input and output once; the
+    kernel is the NTT's four-step plan of length n 2^rate_bits with the
+    coset scaling fused into the first pass's load, which reads only the n
+    nonzero coefficients and skips the first rate_bits butterfly stages."""
+    x = coeffs.v
+    n = x.shape[-1]
+    log_n = log2_strict(n)
+    log_big = log_n + rate_bits
+    if log_big > MAX_LOG_N or log_big <= 11:
+        raise ValueError(f"lde3: 2^{log_big} points are outside "
+                         f"(2^11, 2^{MAX_LOG_N}]")
+    # the first pass of ntt.cu's plan, inside which the zero-pad skip runs
+    first_pass = (log_big + 1) // 2 if log_big <= 22 else 11
+    if not 0 <= rate_bits <= first_pass:
+        raise ValueError(f"lde3: rate_bits {rate_bits} exceeds the first "
+                         f"pass's 2^{first_pass} points at 2^{log_big}")
+    check_cuda_tensor(x, "lde3 coeffs")
+    batch = x.shape[:-1]
+    k = x.numel() // n
+    big_n = n << rate_bits
+    out = torch.empty(*batch, big_n, dtype=torch.int64, device=x.device)
+    tmp = torch.empty_like(out)
+    tw = _twiddle_table(log_n + rate_bits, False, x.device)
+    coset = _coset_table(shift, n, x.device) if shift != 1 else None
+    COSET_LDE3(x.data_ptr(), None if coset is None else coset.data_ptr(),
+               tw.data_ptr(), out.data_ptr(), tmp.data_ptr(), k, log_n,
+               rate_bits)
+    return GF(out)
+
+
 def lde(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
-    """Low-degree extension, natural order: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    """Low-degree extension, natural order: for a CUDA tensor lde.cu up to
+    n = 2^17 and ntt.cu's coset_lde3 above, for a CPU tensor the plain
+    version."""
     if coeffs.v.is_cuda:
-        return lde_cuda(GF(coeffs.v.contiguous()), rate_bits, shift)
+        x = GF(coeffs.v.contiguous())
+        if log2_strict(coeffs.shape[-1]) >= LDE3_MIN_LOG_N:
+            return lde3_cuda(x, rate_bits, shift)
+        return lde_cuda(x, rate_bits, shift)
     return lde_torch(coeffs, rate_bits, shift)
 
 

@@ -1,8 +1,9 @@
 """PolynomialBatch: the batch FRI polynomial commitment (oracle).
 
 Twin of reference fri/oracle.rs:43-220.  Commit: iNTT of the value rows,
-coset LDE (the CUDA kernel on the card), transpose to row leaves,
-bit-reversal gather, and a level-batched Poseidon Merkle tree.
+coset LDE (the CUDA kernels on the card), transpose to row leaves (plus
+SALT_SIZE random columns when blinding), bit-reversal gather, and a
+level-batched Poseidon Merkle tree.
 ``prove_openings`` builds the FRI composition polynomial with alpha powers
 and divides (F(X) - F(z)) / (X - z) in the value domain over the coset
 (one batch inversion + coset iNTT) instead of the reference's sequential
@@ -10,6 +11,10 @@ synthetic division: the same quotient, computed in parallel.
 """
 
 from __future__ import annotations
+
+import os
+
+import numpy as np
 
 from ..field import gl64, ntt
 from ..field.extension import GF2
@@ -49,12 +54,13 @@ class PolynomialBatch:
     natural-order LDE values, and the Merkle tree of the LDE rows."""
 
     def __init__(self, polynomials: GF, lde_values: GF, merkle_tree: MerkleTree,
-                 degree_log: int, rate_bits: int):
+                 degree_log: int, rate_bits: int, blinding: bool):
         self.polynomials = polynomials   # (num_polys, n) coefficient rows
         self.lde_values = lde_values     # (num_polys, n << rate_bits)
         self.merkle_tree = merkle_tree
         self.degree_log = degree_log
         self.rate_bits = rate_bits
+        self.blinding = blinding
 
     @classmethod
     def from_values(cls, values: GF, rate_bits: int, blinding: bool,
@@ -65,17 +71,26 @@ class PolynomialBatch:
     @classmethod
     def from_coeffs(cls, polynomials: GF, rate_bits: int, blinding: bool,
                     cap_height: int) -> "PolynomialBatch":
-        if blinding:
-            raise NotImplementedError(
-                "salted (zk) commitments are ported with the plonk slice")
         n = polynomials.shape[-1]
         lde_values = ntt.lde(polynomials, rate_bits, shift=COSET_SHIFT)
+        leaf_cols = lde_values
+        if blinding:
+            # SALT_SIZE random columns so leaf openings reveal nothing about
+            # the committed values (fri/oracle.rs:109-126).  Salts must be
+            # unpredictable, so they come from the OS CSPRNG, reduced mod p
+            # (a bias within 2^-32, as Field::sample).
+            count = SALT_SIZE * (n << rate_bits)
+            raw = np.frombuffer(os.urandom(8 * count), dtype=np.uint64)
+            salt = GF.from_u64(gl64.to_canonical(raw).reshape(
+                SALT_SIZE, n << rate_bits), polynomials.device)
+            leaf_cols = GF.concatenate([lde_values, salt], axis=0)
         # rows of the evaluation matrix become Merkle leaves, in bit-reversed
         # order (reference fri/oracle.rs:81-100)
         perm = reverse_index_bits_perm(n << rate_bits)
-        leaves = lde_values.transpose(1, 0).take(perm, axis=0)
+        leaves = leaf_cols.transpose(1, 0).take(perm, axis=0)
         tree = MerkleTree(leaves, cap_height)
-        return cls(polynomials, lde_values, tree, log2_strict(n), rate_bits)
+        return cls(polynomials, lde_values, tree, log2_strict(n), rate_bits,
+                   blinding)
 
     def lde_values_natural(self) -> GF:
         """(num_polys, n << rate_bits) evaluations in natural coset order."""

@@ -26,6 +26,13 @@ class MerkleCap:
 
     data: np.ndarray  # (2^cap_height, 4) u64
 
+    def flatten(self) -> np.ndarray:
+        return self.data.reshape(-1)
+
+    @property
+    def cap_height(self) -> int:
+        return log2_strict(self.data.shape[0])
+
     def __eq__(self, other) -> bool:
         return isinstance(other, MerkleCap) and np.array_equal(self.data, other.data)
 

@@ -19,6 +19,7 @@ from ..iop.challenger import Challenger, permutation_for
 from ..plonk.gates.base import BaseBatchCtx
 from ..plonk.prover import _z_h_on_coset
 from ..utils.bits import log2_strict
+from ..utils.cuda import resolve_device
 from ..utils.timing import TimingTree
 from .config import StarkConfig
 from .permutation import (compute_permutation_z_polys_gf,
@@ -28,15 +29,6 @@ from .proof import StarkOpeningSet, StarkProof, StarkProofWithPublicInputs
 from .stark import ConstraintConsumer, Stark, StarkEvaluationVars
 
 P = gl64.ORDER_INT
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names one."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
 
 
 def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,

@@ -124,6 +124,15 @@ class CudaKernel:
         self.calls = self.launches = 0
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names one."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def check_cuda_tensor(x: torch.Tensor, name: str) -> None:
     """Raise unless x is a contiguous int64 CUDA tensor."""
     if not x.is_cuda:

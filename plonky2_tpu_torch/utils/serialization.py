@@ -1,9 +1,11 @@
-"""Binary serialization of STARK proofs.
+"""Binary serialization of PLONK and STARK proofs.
 
-Twin of the repo's self-describing single-table STARK layout (reference
-conventions from plonky2/src/util/serialization/mod.rs: little-endian
+Twin of reference plonky2/src/util/serialization/mod.rs: little-endian
 fixed-width integers, field elements as canonical u64 LE, hashes as 4 field
-elements, length-prefixed vectors).  Only what a STARK proof needs.
+elements.  PLONK proofs use the reference's wire format (no length prefixes
+but the public-input count: every count follows from CommonCircuitData);
+single-table STARK proofs the repo's own self-describing, length-prefixed
+layout.  Circuit-data checkpoints and keccak digests are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 from ..field import gl64
 from ..fri.proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
 from ..hash.merkle import MerkleCap, MerkleProof
+from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 
 
 class Buffer:
@@ -44,12 +47,21 @@ class Buffer:
         for v in np.asarray(vs, dtype=np.uint64).reshape(-1):
             self.write_field(v)
 
+    def write_ext(self, v):
+        self.write_field_vec(np.asarray(v, dtype=np.uint64).reshape(2))
+
     def write_ext_vec(self, vs):
         """Extension elements back to back, no length prefix."""
         self.write_field_vec(np.asarray(vs, dtype=np.uint64).reshape(-1, 2))
 
     def write_hash(self, h):
         self.write_field_vec(np.asarray(h, dtype=np.uint64).reshape(4))
+
+    def write_cap(self, cap: MerkleCap):
+        """Cap hashes back to back, no length prefix (mod.rs:1367): the
+        reader knows cap_height from the config."""
+        for h in cap.data:
+            self.write_hash(h)
 
     def write_hash_vec(self, hashes):
         """usize-length-prefixed hash list (mod.rs:1352)."""
@@ -89,6 +101,10 @@ class Buffer:
 
     def read_ext_vec(self, n: int) -> np.ndarray:
         return self.read_field_vec(2 * n).reshape(n, 2)
+
+    def read_cap(self, cap_height: int) -> MerkleCap:
+        n = 1 << cap_height
+        return MerkleCap(self.read_field_vec(4 * n).reshape(n, 4))
 
     def read_hash_vec(self) -> np.ndarray:
         n = self.read_usize()
@@ -180,3 +196,118 @@ def stark_proof_from_bytes(data: bytes):
     return StarkProofWithPublicInputs(
         StarkProof(trace_cap, quot_cap, openings, opening_proof,
                    permutation_zs_cap=perm_cap), pis)
+
+
+# -- PLONK proofs (byte-exact reference wire format) -------------------------
+
+SALT_SIZE = 4  # reference plonk_common.rs salt_size(hiding): 4 felts
+
+
+def write_opening_set(buf: Buffer, os_: OpeningSet):
+    """Field order per reference mod.rs:1409 (lookups between zs_next and
+    partial_products)."""
+    for arr in (os_.constants, os_.plonk_sigmas, os_.wires, os_.plonk_zs,
+                os_.plonk_zs_next, os_.lookup_zs, os_.lookup_zs_next,
+                os_.partial_products, os_.quotient_polys):
+        buf.write_ext_vec(arr)
+
+
+def read_opening_set(buf: Buffer, common) -> OpeningSet:
+    """reference mod.rs:334"""
+    cfg = common.config
+    constants = buf.read_ext_vec(common.num_constants)
+    plonk_sigmas = buf.read_ext_vec(cfg.num_routed_wires)
+    wires = buf.read_ext_vec(cfg.num_wires)
+    plonk_zs = buf.read_ext_vec(cfg.num_challenges)
+    plonk_zs_next = buf.read_ext_vec(cfg.num_challenges)
+    lookup_zs = buf.read_ext_vec(common.num_all_lookup_polys())
+    lookup_zs_next = buf.read_ext_vec(common.num_all_lookup_polys())
+    partial_products = buf.read_ext_vec(common.num_partial_products
+                                        * cfg.num_challenges)
+    quotient_polys = buf.read_ext_vec(common.quotient_degree_factor
+                                      * cfg.num_challenges)
+    return OpeningSet(constants, plonk_sigmas, wires, plonk_zs, plonk_zs_next,
+                      partial_products, quotient_polys, lookup_zs,
+                      lookup_zs_next)
+
+
+def write_fri_proof(buf: Buffer, fp: FriProof):
+    """reference mod.rs:1568: caps, query rounds, final poly, pow witness,
+    all without counts (they follow from FriParams)."""
+    for cap in fp.commit_phase_merkle_caps:
+        buf.write_cap(cap)
+    for q in fp.query_round_proofs:
+        for leaves, mp in q.initial_trees_proof.evals_proofs:
+            buf.write_field_vec(leaves)
+            buf.write_merkle_proof(mp)
+        for s in q.steps:
+            buf.write_ext_vec(s.evals)
+            buf.write_merkle_proof(s.merkle_proof)
+    buf.write_ext_vec(fp.final_poly)
+    buf.write_field(fp.pow_witness)
+
+
+def read_fri_proof(buf: Buffer, common) -> FriProof:
+    """reference mod.rs:555 (+read_fri_initial_proof:422,
+    read_fri_query_rounds:506)."""
+    cfg = common.config
+    params = common.fri_params
+    cap_height = cfg.fri_config.cap_height
+    caps = [buf.read_cap(cap_height) for _ in params.reduction_arity_bits]
+    salt = SALT_SIZE if params.hiding else 0
+    oracle_widths = [
+        common.num_constants + cfg.num_routed_wires,
+        cfg.num_wires + salt,
+        cfg.num_challenges * (1 + common.num_partial_products
+                              + common.num_lookup_polys) + salt,
+        cfg.num_challenges * common.quotient_degree_factor + salt,
+    ]
+    rounds = []
+    for _ in range(cfg.fri_config.num_query_rounds):
+        evals_proofs = []
+        for width in oracle_widths:
+            leaves = buf.read_field_vec(width)
+            evals_proofs.append((leaves, buf.read_merkle_proof()))
+        steps = [FriQueryStep(buf.read_ext_vec(1 << ar),
+                              buf.read_merkle_proof())
+                 for ar in params.reduction_arity_bits]
+        rounds.append(FriQueryRound(FriInitialTreeProof(evals_proofs), steps))
+    final_poly = buf.read_ext_vec(params.final_poly_len())
+    pow_witness = buf.read_field()
+    return FriProof(caps, rounds, final_poly, pow_witness)
+
+
+def write_proof(buf: Buffer, proof: Proof):
+    buf.write_cap(proof.wires_cap)
+    buf.write_cap(proof.plonk_zs_partial_products_cap)
+    buf.write_cap(proof.quotient_polys_cap)
+    write_opening_set(buf, proof.openings)
+    write_fri_proof(buf, proof.opening_proof)
+
+
+def read_proof(buf: Buffer, common) -> Proof:
+    cap_height = common.config.fri_config.cap_height
+    return Proof(buf.read_cap(cap_height), buf.read_cap(cap_height),
+                 buf.read_cap(cap_height), read_opening_set(buf, common),
+                 read_fri_proof(buf, common))
+
+
+def proof_with_pis_to_bytes(pwp: ProofWithPublicInputs) -> bytes:
+    """reference mod.rs:1963 write_proof_with_public_inputs (the one spot
+    that is length-prefixed: the public-input count)."""
+    buf = Buffer()
+    write_proof(buf, pwp.proof)
+    buf.write_usize(len(pwp.public_inputs))
+    buf.write_field_vec(pwp.public_inputs)
+    return buf.bytes()
+
+
+def proof_with_pis_from_bytes(data: bytes, common) -> ProofWithPublicInputs:
+    if common.config.hasher != "poseidon":
+        raise NotImplementedError(
+            f"hasher {common.config.hasher!r}: keccak digests are ported with "
+            "the multi-table STARK slice")
+    buf = Buffer(data)
+    proof = read_proof(buf, common)
+    n = buf.read_usize()
+    return ProofWithPublicInputs(proof, buf.read_field_vec(n))

@@ -1,14 +1,17 @@
 """The port's coset LDE (plonky2_tpu_torch.field.ntt.lde, plain version on the
-CPU) and its commitment against the JAX package's MXU LDE twin
-(mxu_lde_jnp through natural_perm_from_mem / leaf_perm_from_mem) and its
+CPU) and its commitment against the JAX package's MXU LDE twins
+(mxu_lde_jnp through natural_perm_from_mem / leaf_perm_from_mem, and the
+large-n mxu_lde3_jnp through natural_perm3_from_mem) and its
 PolynomialBatch, exactly."""
 
 import numpy as np
 import pytest
+import torch
 
 from plonky2_tpu.field import gl64 as jgl64
 from plonky2_tpu.field.goldilocks import GF as JGF
 from plonky2_tpu.fri.oracle import PolynomialBatch as JPolynomialBatch
+from plonky2_tpu.ops import mxu_lde3_pallas as M3
 from plonky2_tpu.ops import mxu_lde_pallas as M
 from plonky2_tpu_torch.field import ntt
 from plonky2_tpu_torch.field.goldilocks import GF
@@ -39,13 +42,43 @@ def test_lde_matches_mxu_twin(log_n, rate, n2, k):
     assert np.array_equal(batch.lde_values_natural().to_u64(), nat)
 
 
+@pytest.mark.parametrize("log_n,rate,k", [(14, 1, 2), (15, 2, 1)])
+def test_lde_matches_mxu_lde3_twin(log_n, rate, k):
+    """The plain LDE that both LDE kernels are held to, against the
+    three-step MXU twin at the shapes of tests/test_mxu_lde.py."""
+    rng = np.random.default_rng(log_n * 10 + rate)
+    c = rng.integers(0, P, size=(k, 1 << log_n), dtype=np.uint64)
+    mem = M3.mxu_lde3_jnp(JGF.from_u64(c), rate, shift=7).to_u64().reshape(
+        k, (1 << log_n) << rate)
+    nat = jgl64.to_canonical(mem[:, M3.natural_perm3_from_mem(log_n, rate, 128, 128)])
+    assert np.array_equal(ntt.lde_torch(GF.from_u64(c, "cpu"), rate, 7).to_u64(), nat)
+
+
 def test_lde_dispatch_is_by_device(rng):
-    c = GF.from_u64(rng.integers(0, P, size=(2, 16), dtype=np.uint64), "cpu")
-    before = ntt.COSET_LDE.launches
+    # 2^11 coefficients: a shape both kernels take, so each wrapper gets as
+    # far as its device check
+    c = GF.from_u64(rng.integers(0, P, size=(2, 1 << 11), dtype=np.uint64), "cpu")
+    before = (ntt.COSET_LDE.launches, ntt.COSET_LDE3.launches)
     ntt.lde(c, 1, 7)
-    assert ntt.COSET_LDE.launches == before            # CPU: plain version
+    # CPU: plain version
+    assert (ntt.COSET_LDE.launches, ntt.COSET_LDE3.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         ntt.lde_cuda(c, 1, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt.lde3_cuda(c, 1, 7)
+
+
+@pytest.mark.parametrize("log_n,rate_bits,ok", [(4, 8, False), (6, 6, True),
+                                                (12, 11, True), (2, 11, False)])
+def test_lde3_rate_bits_fit_the_first_pass(log_n, rate_bits, ok):
+    """ntt.cu's coset_lde3 skips the zero padding inside its first pass, so
+    2^rate_bits may not exceed that pass's length (2^(ceil(log N / 2)) up to
+    2^22 points, 2^11 above); the wrapper rejects such a shape before it
+    reaches the card."""
+    c = GF(torch.zeros(1, 1 << log_n, dtype=torch.int64))
+    match = "CUDA" if ok else "first pass"
+    with pytest.raises(ValueError, match=match):
+        ntt.lde3_cuda(c, rate_bits)
 
 
 def test_from_values_cap_matches_jax():

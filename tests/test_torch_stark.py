@@ -28,6 +28,16 @@ from plonky2_tpu_torch.utils.serialization import (stark_proof_from_bytes,
                                                    stark_proof_to_bytes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the modules of the plonk slice, each imported with jax blocked
+PLONK_SLICE_MODULES = [
+    "plonk.builder", "plonk.circuit_data", "plonk.config", "plonk.gadgets",
+    "plonk.generators", "plonk.proof", "plonk.prover", "plonk.targets",
+    "plonk.validate_shape", "plonk.vanishing", "plonk.verifier",
+    "plonk.witness", "plonk.gates.arithmetic", "plonk.gates.base",
+    "plonk.gates.ext_gates", "plonk.gates.interpolation",
+    "plonk.gates.lookup", "plonk.gates.misc", "plonk.gates.poseidon_gate",
+    "plonk.gates.simple", "models.examples", "models.matrix_mul",
+    "utils.context_tree", "utils.serialization", "field.ntt", "convert"]
 
 
 def fib_pis(stark, x0, x1):
@@ -105,6 +115,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m == 'plonky2_tpu' "
         "or m.startswith('plonky2_tpu.')]\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {PLONK_SLICE_MODULES!r} "
+        "if 'plonky2_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules "
         "if m.startswith('plonky2_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
