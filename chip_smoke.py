@@ -7,15 +7,18 @@ Run from the repository root, with no arguments:
 
 Phases, one line each:
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc versions;
-  1. build of every CUDA kernel in plonky2_tpu_torch/csrc (nvcc, sm_90a);
-  2. Poseidon kernel against its plain torch version on 2^17 states (exact);
-  3. LDE kernel (lde.cu) against its plain torch version at the plonk wires'
-     (135, 2^15) r=3, (64, 2^16) r=3 and (4, 2^20) r=1 (exact);
-  4. NTT kernel (ntt.cu) against the plain *_torch transforms: intt of
-     (135, 2^15), coset_intt of (2, 2^18), coset_ntt of (2, 2^20), and ntt
-     of (1, 2^23), the three-pass plan (exact);
-  5. large-n LDE kernel (ntt.cu coset_lde3) against lde_torch at (4, 2^20)
-     r=1, and at phase 3's (135, 2^15) and (64, 2^16) r=3 (exact);
+  1. build of every CUDA kernel in plonky2_tpu_torch/csrc (nvcc, sm_90a),
+     with each kernel's registers and its SASS instructions by class;
+  2. Poseidon permutation kernel against its plain torch version on 2^17
+     states, noncanonical and zero states among them (exact);
+  3. the fused sponge kernel (poseidon_hash_rows) against the plain
+     hash_no_pad loop at (2^18 rows, 135) and (2^15 rows, 9) (exact);
+  4. the LDE kernel (ntt.cu's lde entry) against lde_torch at the plonk
+     wires' (135, 2^15) r=3, (64, 2^16) r=3, the STARK trace's (4, 2^20)
+     r=1 and (16, 2^8) r=3, a one-pass shape (exact);
+  5. the NTT kernel (ntt.cu) against the plain *_torch transforms: intt of
+     (135, 2^15), coset_intt of (2, 2^18), coset_ntt of (2, 2^20), ntt of
+     (8, 2^16) and of (1, 2^23), the three-pass plan (exact);
   6. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
      proof bytes, and a wrong public result is rejected by the verifier;
   7. an m = 2 matrix-multiplication plonk proof (standard_recursion_config)
@@ -32,7 +35,8 @@ Phases, one line each:
      twice (cold, warm) and verified, with per-phase times, peak memory and
      each kernel's calls and launches on that path;
  11. the warm plonk prove once more under torch.profiler;
- 12. a JSON line with every kernel's launches, times and bound.
+ 12. a JSON line with every kernel's launches, device ms per prove, times
+     and bound.
 A kernel that a path should run and that launched no time there fails the
 run.  The last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before it.  Times are medians of CUDA-event timings after a
@@ -68,20 +72,29 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 MULMOD_MULS = 4
 
 
-def poseidon_muls() -> int:
-    """32-bit multiplies in one Poseidon permutation.  S-boxes: x^7 is four
-    Goldilocks multiplies, on 12 lanes in the 8 full rounds and on lane 0 in
-    the 22 partial rounds.  MDS: each output lane sums constant x 32-bit half
-    products over both halves; a constant that is a power of two is a shift,
-    any other one IMAD.WIDE.U32 (constants <= 41, products < 2^38)."""
+def poseidon_muls() -> dict:
+    """32-bit multiplies in one Poseidon permutation, in both round
+    schedules; the bound takes the lower.  S-boxes: x^7 is four Goldilocks
+    multiplies, on 12 lanes in the 8 full rounds and on lane 0 in the 22
+    partial rounds.  A full-round MDS: each output lane sums constant x
+    32-bit half products over both halves; a constant that is a power of two
+    is a shift, any other one IMAD.WIDE.U32 (constants <= 41).  The
+    canonical schedule runs that MDS in all 30 rounds.  The fast one
+    (reference poseidon.rs:584) runs it in the 8 full rounds only; its
+    partial rounds cost an 11 x 11 matrix of full constants once, then per
+    round 22 full multiplies (11 W_HATS, 11 VS) and MDS[0][0] = 25 times
+    lane 0 (two halves)."""
     from plonky2_tpu_torch.hash import poseidon_constants as C
 
     def muls(consts):
         return sum(1 for c in consts if c & (c - 1))   # nonzero, not 2^j
     w = C.SPONGE_WIDTH
-    sboxes = C.N_FULL_ROUNDS_TOTAL * w + C.N_PARTIAL_ROUNDS
-    mds = C.N_ROUNDS * 2 * (w * muls(C.MDS_MATRIX_CIRC) + muls(C.MDS_MATRIX_DIAG))
-    return sboxes * 4 * MULMOD_MULS + mds
+    sboxes = (C.N_FULL_ROUNDS_TOTAL * w + C.N_PARTIAL_ROUNDS) * 4 * MULMOD_MULS
+    mds = 2 * (w * muls(C.MDS_MATRIX_CIRC) + muls(C.MDS_MATRIX_DIAG))
+    fast_partial = ((w - 1) ** 2 * MULMOD_MULS
+                    + C.N_PARTIAL_ROUNDS * (2 * (w - 1) * MULMOD_MULS + 2))
+    return {"canonical": sboxes + C.N_ROUNDS * mds,
+            "fast": sboxes + C.N_FULL_ROUNDS_TOTAL * mds + fast_partial}
 
 
 def line(phase: str, **kv) -> None:
@@ -143,31 +156,43 @@ def phase_build() -> None:
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for name, log in cuda.build_log.items()}
     line("build", seconds=secs, libraries=sorted(libs), ptxas=ptxas,
-         sass_multiplies={name: sass_multiplies(path)
-                          for name, path in sorted(libs.items())})
+         sass={name: sass_classes(path) for name, path in sorted(libs.items())})
 
 
-def sass_multiplies(so_path) -> dict:
-    """Static count of integer-multiply SASS instructions (IMAD*, except the
-    IMAD.MOV/IADD/SHL forms that only move, add or shift) in each kernel of
-    a built library, from cuobjdump."""
+SASS_CLASSES = ("IMAD", "IADD3", "ISETP", "SEL", "LDS", "STS", "LDG", "STG",
+                "LDC", "BAR")
+
+
+def sass_classes(so_path) -> dict:
+    """Static count of SASS instructions by class in each kernel of a built
+    library, from cuobjdump: the classes of SASS_CLASSES (by opcode, any
+    suffix), "multiplies" (the IMAD forms that multiply: all but IMAD.MOV,
+    IMAD.IADD and IMAD.SHL, which move, add or shift) and "total"."""
     import re
     from plonky2_tpu_torch.utils.cuda import nvcc_path
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so_path)], capture_output=True,
                           text=True, check=True).stdout
     out, fn = {}, None
-    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?(IMAD\S*)")
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = re.search(r"[a-z][a-z0-9_]*_kernel", m.group(1))
             fn = name.group(0) if name else m.group(1)
-            out[fn] = {}
+            out[fn] = dict.fromkeys(SASS_CLASSES + ("multiplies", "total"), 0)
             continue
         m = op_re.search(ln)
-        if m and fn and not m.group(1).startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")):
-            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+        if not (m and fn) or m.group(1) == "NOP":
+            continue
+        op = m.group(1)
+        counts = out[fn]
+        counts["total"] += 1
+        root = op.split(".")[0]
+        if root in counts:
+            counts[root] += 1
+        if root == "IMAD" and not op.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")):
+            counts["multiplies"] += 1
     return out
 
 
@@ -188,11 +213,12 @@ def phase_poseidon() -> dict:
     err = max_abs_err(got, want)
     if err:
         fail(f"poseidon kernel differs from permute_torch (max |err| {err})")
-    ms = cuda_ms(lambda: poseidon.permute_cuda(x))
+    ms = cuda_ms(lambda: poseidon.permute_cuda(x), reps=20)
     plain_ms = cuda_ms(lambda: poseidon.permute_torch(x), reps=3)
-    bound_ms, bound_by = bound(b * poseidon_muls(), b * 12 * 8 * 2)
+    muls = poseidon_muls()
+    bound_ms, bound_by = bound(b * min(muls.values()), b * 12 * 8 * 2)
     line("poseidon", states=b, exact=True, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, int32_muls_per_perm=poseidon_muls(),
+         bound_ms=bound_ms, bound_by=bound_by, int32_muls_per_perm=muls,
          mperms_per_s=b / ms / 1e3)
     return {"name": "poseidon_permute", "route": "cuda",
             "source": "plonky2_tpu_torch/csrc/poseidon.cu",
@@ -213,25 +239,58 @@ def host_canonical(x) -> np.ndarray:
     return canonical(x.v).cpu().numpy().view(np.uint64)
 
 
-def lde_case(phase: str, kernel, k: int, log_n: int, rate_bits: int,
-             seed: int) -> dict:
+def hash_rows_case(rows: int, length: int, seed: int) -> dict:
+    """The fused sponge against the plain hash_no_pad loop.  The bound
+    counts ceil(L / 8) permutations per row against reading the rows and
+    writing 4 elements per row."""
+    from plonky2_tpu_torch.field.goldilocks import GF
+    from plonky2_tpu_torch.hash import hashing
+    x = random_gf((rows, length), seed).v
+    err = max_abs_err(host_canonical(GF(hashing.hash_rows_cuda(x))),
+                      host_canonical(GF(hashing.hash_no_pad_torch(x))))
+    if err:
+        fail(f"poseidon_hash_rows differs from hash_no_pad_torch at {(rows, length)}")
+    ms = cuda_ms(lambda: hashing.hash_rows_cuda(x), reps=10)
+    plain_ms = cuda_ms(lambda: hashing.hash_no_pad_torch(x), reps=1)
+    perms = rows * -(-length // 8)
+    bound_ms, bound_by = bound(perms * min(poseidon_muls().values()),
+                               8 * rows * (length + 4))
+    res = {"rows": rows, "len": length, "exact": True, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "mperms_per_s": perms / ms / 1e3, "max_abs_err": err}
+    line("hash_rows", **res)
+    return res
+
+
+def phase_hash_rows() -> dict:
+    main = hash_rows_case(1 << 18, 135, seed=12)   # plonk wires' leaves
+    hash_rows_case(1 << 15, 9, seed=13)
+    return entry("poseidon_hash_rows", "plonky2_tpu_torch/csrc/poseidon.cu",
+                 "plonky2_tpu/ops/poseidon_pallas.py:240", main)
+
+
+def lde_case(k: int, log_n: int, rate_bits: int, seed: int) -> dict:
     from plonky2_tpu_torch.field import ntt
     n = 1 << log_n
     x = random_gf((k, n), seed)
-    err = max_abs_err(host_canonical(kernel(x, rate_bits, 7)),
+    before = ntt.LDE.launches
+    got = ntt.lde_cuda(x, rate_bits, 7)
+    launched = ntt.LDE.launches - before
+    err = max_abs_err(host_canonical(got),
                       host_canonical(ntt.lde_torch(x, rate_bits, 7)))
-    if err:
-        fail(f"{phase} kernel differs from lde_torch at {(k, n, rate_bits)}")
-    ms = cuda_ms(lambda: kernel(x, rate_bits, 7))
+    if err or launched == 0:
+        fail(f"LDE kernel differs from lde_torch at {(k, n, rate_bits)}")
+    ms = cuda_ms(lambda: ntt.lde_cuda(x, rate_bits, 7), reps=10)
     plain_ms = cuda_ms(lambda: ntt.lde_torch(x, rate_bits, 7), reps=3)
     big_n = n << rate_bits
     butterflies = k * (log_n) * (big_n // 2)
     ops = (butterflies + k * n) * MULMOD_MULS
     bound_ms, bound_by = bound(ops, 8 * k * n + 8 * k * big_n)
-    res = {"k": k, "n": n, "rate_bits": rate_bits, "exact": True, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    res = {"k": k, "n": n, "rate_bits": rate_bits, "exact": True,
+           "launches_per_call": launched, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "g_elems_per_s": k * big_n / ms / 1e6, "max_abs_err": err}
-    line(phase, **res)
+    line("lde", **res)
     return res
 
 
@@ -244,12 +303,14 @@ def entry(name: str, source: str, replaces: str, res: dict) -> dict:
 
 
 def phase_lde() -> dict:
-    from plonky2_tpu_torch.field import ntt
-    main = lde_case("lde", ntt.lde_cuda, 135, 15, 3, seed=2)  # plonk wires
-    lde_case("lde", ntt.lde_cuda, 64, 16, 3, seed=3)    # bench.py's LDE shape
-    lde_case("lde", ntt.lde_cuda, 4, 20, 1, seed=4)     # beside lde3's shape
-    return entry("coset_lde", "plonky2_tpu_torch/csrc/lde.cu",
-                 "plonky2_tpu/ops/mxu_lde_pallas.py:304", main)
+    main = lde_case(135, 15, 3, seed=2)   # plonk wires
+    lde_case(64, 16, 3, seed=3)           # bench.py's LDE shape
+    lde_case(4, 20, 1, seed=4)            # the 2^20 STARK trace
+    lde_case(16, 8, 3, seed=8)            # 2^11 points: one pass
+    e = entry("lde", "plonky2_tpu_torch/csrc/ntt.cu",
+              "plonky2_tpu/ops/mxu_lde_pallas.py:304", main)
+    e["also_replaces"] = ["plonky2_tpu/ops/mxu_lde3_pallas.py:249"]
+    return e
 
 
 def ntt_case(op: str, k: int, log_n: int, seed: int) -> dict:
@@ -274,7 +335,7 @@ def ntt_case(op: str, k: int, log_n: int, seed: int) -> dict:
     if err or launched == 0:
         fail(f"NTT kernel differs from {op}_torch at {(k, n)} "
              f"(launches {launched})")
-    ms = cuda_ms(kernel)
+    ms = cuda_ms(kernel, reps=10)
     plain_ms = cuda_ms(plain, reps=3)
     ops = (k * (n // 2) * log_n + k * n) * MULMOD_MULS
     bound_ms, bound_by = bound(ops, 16 * k * n)
@@ -290,20 +351,13 @@ def phase_ntt() -> dict:
     ntt_case("intt", 135, 15, seed=5)          # plonk wires from_values
     main = ntt_case("coset_intt", 2, 18, seed=6)   # plonk quotient
     ntt_case("coset_ntt", 2, 20, seed=7)       # STARK opening quotients
-    ntt_case("ntt", 1, 23, seed=11)            # the three-pass plan (> 2^22)
-    return entry("ntt", "plonky2_tpu_torch/csrc/ntt.cu",
-                 "plonky2_tpu/ops/mxu_ntt_pallas.py:203", main)
-
-
-def phase_lde3() -> dict:
-    from plonky2_tpu_torch.field import ntt
-    main = lde_case("lde3", ntt.lde3_cuda, 4, 20, 1, seed=8)  # 2^20 trace
-    # lde.cu's shapes of phase 3, to time the two LDE kernels side by side
-    # where ntt.lde sends work to lde.cu
-    lde_case("lde3", ntt.lde3_cuda, 135, 15, 3, seed=2)
-    lde_case("lde3", ntt.lde3_cuda, 64, 16, 3, seed=3)
-    return entry("coset_lde3", "plonky2_tpu_torch/csrc/ntt.cu",
-                 "plonky2_tpu/ops/mxu_lde3_pallas.py:249", main)
+    ntt_case("ntt", 8, 16, seed=14)            # tools/pallas_ntt*.py's 2^16
+    ntt_case("ntt", 1, 23, seed=11)            # the three-pass plan
+    e = entry("ntt", "plonky2_tpu_torch/csrc/ntt.cu",
+              "plonky2_tpu/ops/mxu_ntt_pallas.py:203", main)
+    e["also_replaces"] = ["tools/pallas_ntt_proto.py:89",
+                          "tools/pallas_ntt2.py:100"]
+    return e
 
 
 def fib_inputs(log_rows: int, x0: int = 0, x1: int = 1):
@@ -480,12 +534,12 @@ def phase_plonk(kernels: list, required: list):
 
 # The __global__ functions behind each C entry point, as the profiler names them.
 KERNEL_FUNCTIONS = {"poseidon_permute": ("poseidon_kernel",),
-                    "coset_lde": ("lde_tile_kernel", "ntt_stage_kernel"),
-                    "ntt": ("dft_kernel",),
-                    "coset_lde3": ("lde3_kernel",)}
+                    "poseidon_hash_rows": ("hash_rows_kernel",),
+                    "lde": ("lde_kernel",),
+                    "ntt": ("dft_kernel",)}
 
 
-def phase_profile(path: str, prove, kernels: list) -> None:
+def phase_profile(path: str, prove, kernels: list) -> dict:
     """One more prove under torch.profiler: device busy time (one stream,
     so kernels do not overlap), the device's idle share of the wall time,
     and device time and launches of the ported kernels and the largest
@@ -520,6 +574,7 @@ def phase_profile(path: str, prove, kernels: list) -> None:
          device_launches=sum(count.values()), ported=ported,
          top_kernels=[{"name": n[:90], "ms": t / 1e3, "count": count[n]}
                       for n, t in us.most_common(12)])
+    return ported
 
 
 def main() -> int:
@@ -527,26 +582,28 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from plonky2_tpu_torch.field.ntt import COSET_LDE, COSET_LDE3, NTT
+    from plonky2_tpu_torch.field.ntt import LDE, NTT
+    from plonky2_tpu_torch.hash.hashing import HASH_ROWS
     from plonky2_tpu_torch.hash.poseidon import POSEIDON
 
     phase_card()
     phase_build()
-    entries = [phase_poseidon(), phase_lde(), phase_ntt(), phase_lde3()]
+    entries = [phase_poseidon(), phase_hash_rows(), phase_lde(), phase_ntt()]
     phase_small_proofs()
     phase_small_plonk()
-    kernels = [POSEIDON, COSET_LDE, NTT, COSET_LDE3]
-    stark_launches, stark_prove = phase_full_prove(
-        kernels, required=[POSEIDON, NTT, COSET_LDE3])
-    phase_profile("stark 2^20 rows", stark_prove, kernels)
-    plonk_launches, plonk_prove = phase_plonk(
-        kernels, required=[POSEIDON, COSET_LDE, NTT])
-    phase_profile("plonk m=64", plonk_prove, kernels)
+    kernels = [POSEIDON, HASH_ROWS, LDE, NTT]
+    stark_launches, stark_prove = phase_full_prove(kernels, required=kernels)
+    stark_profile = phase_profile("stark 2^20 rows", stark_prove, kernels)
+    plonk_launches, plonk_prove = phase_plonk(kernels, required=kernels)
+    plonk_profile = phase_profile("plonk m=64", plonk_prove, kernels)
     for e, k in zip(entries, kernels):
         by_path = {"stark_2^20": stark_launches[k.symbol],
                    "plonk_m64": plonk_launches[k.symbol]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        e["device_ms_per_prove"] = {
+            "stark_2^20": stark_profile[k.symbol]["device_ms"],
+            "plonk_m64": plonk_profile[k.symbol]["device_ms"]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

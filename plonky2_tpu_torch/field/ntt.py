@@ -3,7 +3,7 @@
 ``ntt``, ``intt``, ``coset_ntt`` and ``coset_intt`` transform the last axis
 of a (batch..., n) GF array, natural order in and out.  A CUDA tensor goes
 to the hand-written kernel csrc/ntt.cu (``ntt_cuda``: a four- or three-step
-composition of a shared-memory DFT, two or three launches per transform); a
+composition of a shared-memory DFT, one to three launches per transform); a
 CPU tensor to the plain torch versions ``*_torch``, the twin of reference
 field/src/fft.rs:52,99,169: a radix-2 DIT on bit-reversed input, one
 vectorised torch pass per stage.  ``dft_torch`` is the plain version of the
@@ -11,10 +11,10 @@ kernel's building block (a DFT along axis 0 with an optional twiddle
 post-multiply).  Twiddles come from one table per (log n, direction,
 device), tw[i] = w_n^i for i < n/2.
 
-``lde`` is the commitment LDE.  A CUDA tensor goes to csrc/lde.cu
-(``lde_cuda``) for n <= 2^17 and to csrc/ntt.cu's ``coset_lde3``
-(``lde3_cuda``) above; a CPU tensor to ``lde_torch``, the plain version of
-both.  Extension (GF2) codewords transform componentwise.
+``lde`` is the commitment LDE.  A CUDA tensor goes to csrc/ntt.cu's ``lde``
+entry (``lde_cuda``: the forward plan with the zero-pad skip and the coset
+scaling in its first pass), a CPU tensor to ``lde_torch``, its plain
+version.  Extension (GF2) codewords transform componentwise.
 """
 
 from __future__ import annotations
@@ -31,18 +31,15 @@ from . import gl64
 from .extension import GF2
 from .goldilocks import GF, add, mul, sub
 
-COSET_LDE = CudaKernel("lde.cu", "coset_lde", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int])
 NTT = CudaKernel("ntt.cu", "ntt", [ctypes.c_void_p] * 6 + [
     ctypes.c_int64, ctypes.c_int])
-COSET_LDE3 = CudaKernel("ntt.cu", "coset_lde3", [ctypes.c_void_p] * 5 + [
+LDE = CudaKernel("ntt.cu", "lde", [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int])
 
-# lde.cu below this many coefficients, ntt.cu's coset_lde3 above (the split
-# of plonky2_tpu/fri/oracle.py:138-139 between mxu_lde and mxu_lde3)
-LDE3_MIN_LOG_N = 18
-# the largest transform the kernel's three-step plan covers
+# ntt.cu's plans (csrc/ntt.cu pass_logs, twiddle_split): one pass up to
+# 2^LOG_TILE points, two up to 2^MAX_TWO_PASS, three up to 2^MAX_LOG_N
+LOG_TILE = 13
+MAX_TWO_PASS = 22
 MAX_LOG_N = 33
 
 
@@ -54,6 +51,33 @@ def _twiddle_table(log_n: int, inverse: bool, device: torch.device) -> torch.Ten
         root = pow(root, gl64.ORDER_INT - 2, gl64.ORDER_INT)
     tw = gl64.powers(root, max((1 << log_n) >> 1, 1))
     return torch.from_numpy(tw.view(np.int64).copy()).to(device)
+
+
+def _twiddle_split(log_n: int) -> int:
+    """b of the kernel's tables, w^e = thi[e >> b] * tlo[e % 2^b]."""
+    return 0 if log_n <= LOG_TILE else log_n // 2
+
+
+def _first_pass_log(log_n: int) -> int:
+    """log2 of the length of the first pass of ntt.cu's plan."""
+    if log_n <= LOG_TILE:
+        return log_n
+    if log_n <= MAX_TWO_PASS:
+        return (log_n + 1) // 2
+    return (log_n + 2) // 3
+
+
+@lru_cache(maxsize=32)
+def _kernel_tables(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """ntt.cu's twiddle tables for a transform of 2^log_n points: thi[x] =
+    w^(x 2^b) for x < 2^(log_n - b), then tlo[x] = w^x for x < 2^b."""
+    root = gl64.primitive_root_of_unity(log_n)
+    if inverse:
+        root = pow(root, gl64.ORDER_INT - 2, gl64.ORDER_INT)
+    b = _twiddle_split(log_n)
+    thi = gl64.powers(pow(root, 1 << b, gl64.ORDER_INT), 1 << (log_n - b))
+    tlo = gl64.powers(root, 1 << b)
+    return torch.from_numpy(np.concatenate([thi, tlo]).view(np.int64)).to(device)
 
 
 @lru_cache(maxsize=32)
@@ -143,8 +167,8 @@ def ntt_cuda(x: torch.Tensor, inverse: bool = False,
     Replaces the TPU kernel plonky2_tpu/ops/mxu_ntt_pallas.py mxu_dft (and
     mxu_ntt, which composes it).  On the H100 it is bound by moving its input
     and output once, with the butterflies' integer multiplies close behind;
-    the kernel moves the data once per pass (two passes up to 2^22 points,
-    three above)."""
+    the kernel moves the data once per pass (one pass up to 2^13 points, two
+    up to 2^22, three above)."""
     check_cuda_tensor(x, "ntt input")
     n = x.shape[-1]
     log_n = log2_strict(n)
@@ -152,9 +176,9 @@ def ntt_cuda(x: torch.Tensor, inverse: bool = False,
         raise ValueError(f"ntt: 2^{log_n} points exceed the kernel's 2^{MAX_LOG_N}")
     batch = x.numel() // n if n else 0
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if log_n > 11 else out
-    tw = _twiddle_table(log_n, inverse, x.device)
-    NTT(x.data_ptr(), out.data_ptr(), tmp.data_ptr(), tw.data_ptr(),
+    tmp = torch.empty_like(x) if log_n > LOG_TILE else out
+    tables = _kernel_tables(log_n, inverse, x.device)
+    NTT(x.data_ptr(), out.data_ptr(), tmp.data_ptr(), tables.data_ptr(),
         None if scale_in is None else scale_in.data_ptr(),
         None if scale_out is None else scale_out.data_ptr(), batch, log_n)
     return out
@@ -209,74 +233,42 @@ def lde_torch(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
 
 
 def lde_cuda(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
-    """The LDE on the card through csrc/lde.cu, same contract as lde_torch.
+    """The LDE on the card through csrc/ntt.cu's ``lde`` entry, same
+    contract as lde_torch, for every size.
 
-    Replaces the TPU kernel plonky2_tpu/ops/mxu_lde_pallas.py mxu_lde.  On
-    the H100 it is bound by moving its input and output once, with the
-    integer multiplies of its butterflies close behind; the kernel runs the
-    first stages in a shared-memory tile and each later stage as one pass
-    over device memory."""
-    x = coeffs.v
-    check_cuda_tensor(x, "lde coeffs")
-    n = x.shape[-1]
-    log_n = log2_strict(n)
-    batch = x.shape[:-1]
-    k = int(np.prod(batch)) if batch else 1
-    if k > 65535:
-        raise ValueError(f"lde: {k} polynomials exceed the grid's y limit")
-    big_n = n << rate_bits
-    out = torch.empty(*batch, big_n, dtype=torch.int64, device=x.device)
-    tw = _twiddle_table(log_n + rate_bits, False, x.device)
-    coset = _coset_table(shift, n, x.device) if shift != 1 else None
-    COSET_LDE(x.data_ptr(), None if coset is None else coset.data_ptr(),
-              tw.data_ptr(), out.data_ptr(), k, log_n, rate_bits)
-    return GF(out)
-
-
-def lde3_cuda(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
-    """The LDE on the card through csrc/ntt.cu coset_lde3, same contract as
-    lde_torch, for n > 2^17.
-
-    Replaces the TPU kernel plonky2_tpu/ops/mxu_lde3_pallas.py mxu_lde3.
-    On the H100 it is bound by moving its input and output once; the
-    kernel is the NTT's four-step plan of length n 2^rate_bits with the
-    coset scaling fused into the first pass's load, which reads only the n
-    nonzero coefficients and skips the first rate_bits butterfly stages."""
+    Replaces the TPU kernels plonky2_tpu/ops/mxu_lde_pallas.py mxu_lde and
+    plonky2_tpu/ops/mxu_lde3_pallas.py mxu_lde3.  On the H100 it is bound
+    by moving its input and output once; the kernel is the NTT's plan of
+    length n 2^rate_bits with the coset scaling fused into the first pass's
+    load, which reads only the n nonzero coefficients and writes each
+    2^rate_bits times in place of the first rate_bits butterfly stages."""
     x = coeffs.v
     n = x.shape[-1]
     log_n = log2_strict(n)
     log_big = log_n + rate_bits
-    if log_big > MAX_LOG_N or log_big <= 11:
-        raise ValueError(f"lde3: 2^{log_big} points are outside "
-                         f"(2^11, 2^{MAX_LOG_N}]")
-    # the first pass of ntt.cu's plan, inside which the zero-pad skip runs
-    first_pass = (log_big + 1) // 2 if log_big <= 22 else 11
+    if log_big > MAX_LOG_N:
+        raise ValueError(f"lde: 2^{log_big} points exceed the kernel's 2^{MAX_LOG_N}")
+    first_pass = _first_pass_log(log_big)
     if not 0 <= rate_bits <= first_pass:
-        raise ValueError(f"lde3: rate_bits {rate_bits} exceeds the first "
+        raise ValueError(f"lde: rate_bits {rate_bits} exceeds the first "
                          f"pass's 2^{first_pass} points at 2^{log_big}")
-    check_cuda_tensor(x, "lde3 coeffs")
+    check_cuda_tensor(x, "lde coeffs")
     batch = x.shape[:-1]
     k = x.numel() // n
-    big_n = n << rate_bits
-    out = torch.empty(*batch, big_n, dtype=torch.int64, device=x.device)
-    tmp = torch.empty_like(out)
-    tw = _twiddle_table(log_n + rate_bits, False, x.device)
+    out = torch.empty(*batch, n << rate_bits, dtype=torch.int64, device=x.device)
+    tmp = torch.empty_like(out) if log_big > LOG_TILE else out
+    tables = _kernel_tables(log_big, False, x.device)
     coset = _coset_table(shift, n, x.device) if shift != 1 else None
-    COSET_LDE3(x.data_ptr(), None if coset is None else coset.data_ptr(),
-               tw.data_ptr(), out.data_ptr(), tmp.data_ptr(), k, log_n,
-               rate_bits)
+    LDE(x.data_ptr(), None if coset is None else coset.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), tmp.data_ptr(), k, log_n, rate_bits)
     return GF(out)
 
 
 def lde(coeffs: GF, rate_bits: int, shift: int = 1) -> GF:
-    """Low-degree extension, natural order: for a CUDA tensor lde.cu up to
-    n = 2^17 and ntt.cu's coset_lde3 above, for a CPU tensor the plain
-    version."""
+    """Low-degree extension, natural order: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
     if coeffs.v.is_cuda:
-        x = GF(coeffs.v.contiguous())
-        if log2_strict(coeffs.shape[-1]) >= LDE3_MIN_LOG_N:
-            return lde3_cuda(x, rate_bits, shift)
-        return lde_cuda(x, rate_bits, shift)
+        return lde_cuda(GF(coeffs.v.contiguous()), rate_bits, shift)
     return lde_torch(coeffs, rate_bits, shift)
 
 

@@ -7,8 +7,9 @@ MDS.  MDS sums accumulate exactly on the 32-bit halves of each lane and are
 reduced once per output (the reference's u128 trick, poseidon.rs:178).
 
 ``permute`` sends a CUDA tensor to the hand-written kernel csrc/poseidon.cu
-(``permute_cuda``) and a CPU tensor to the plain torch version
-``permute_torch``.  ``permute_np`` is the host numpy twin for the challenger.
+(``permute_cuda``, which runs the partial rounds in the reference's fast
+schedule, poseidon.rs:584: the same permutation) and a CPU tensor to the
+plain torch version ``permute_torch``.  ``permute_np`` is the host numpy twin for the challenger.
 """
 
 from __future__ import annotations
@@ -91,9 +92,11 @@ def permute_cuda(states: torch.Tensor) -> torch.Tensor:
     contiguous; returns a new (B, 12) tensor.
 
     Replaces the TPU kernel plonky2_tpu/ops/poseidon_pallas.py permute_cols.
-    On the H100 it is bound by integer multiplies (192 bytes of state per
-    9,088 32-bit multiplies); the kernel keeps each state in one thread's
-    registers and the round constants in __constant__ memory."""
+    On the H100 it is bound by integer multiplies and the instructions
+    around them (192 bytes of state per 6,272 32-bit multiplies); the
+    kernel keeps each state in one thread's registers, runs the partial
+    rounds in the reference's fast schedule and the constants from
+    __constant__ memory."""
     check_cuda_tensor(states, "poseidon states")
     if states.ndim != 2 or states.shape[1] != WIDTH:
         raise ValueError(f"poseidon states: expected (B, 12), got {tuple(states.shape)}")

@@ -1,5 +1,5 @@
 """The port's coset LDE (plonky2_tpu_torch.field.ntt.lde, plain version on the
-CPU) and its commitment against the JAX package's MXU LDE twins
+CPU; csrc/ntt.cu's lde entry on the card) and its commitment against the JAX package's MXU LDE twins
 (mxu_lde_jnp through natural_perm_from_mem / leaf_perm_from_mem, and the
 large-n mxu_lde3_jnp through natural_perm3_from_mem) and its
 PolynomialBatch, exactly."""
@@ -55,30 +55,35 @@ def test_lde_matches_mxu_lde3_twin(log_n, rate, k):
 
 
 def test_lde_dispatch_is_by_device(rng):
-    # 2^11 coefficients: a shape both kernels take, so each wrapper gets as
-    # far as its device check
     c = GF.from_u64(rng.integers(0, P, size=(2, 1 << 11), dtype=np.uint64), "cpu")
-    before = (ntt.COSET_LDE.launches, ntt.COSET_LDE3.launches)
-    ntt.lde(c, 1, 7)
+    before = ntt.LDE.launches
+    got = ntt.lde(c, 1, 7)
     # CPU: plain version
-    assert (ntt.COSET_LDE.launches, ntt.COSET_LDE3.launches) == before
+    assert ntt.LDE.launches == before
+    assert np.array_equal(got.to_u64(), ntt.lde_torch(c, 1, 7).to_u64())
     with pytest.raises(ValueError, match="CUDA"):
         ntt.lde_cuda(c, 1, 7)
-    with pytest.raises(ValueError, match="CUDA"):
-        ntt.lde3_cuda(c, 1, 7)
 
 
-@pytest.mark.parametrize("log_n,rate_bits,ok", [(4, 8, False), (6, 6, True),
-                                                (12, 11, True), (2, 11, False)])
+# (log n, rate_bits, taken): the STARK 2^5 / 2^10 / 2^20 paths call (5, 1),
+# (10, 1) and (20, 1), plonk m = 2 and m = 64 call (3, 3) and (15, 3)
+# (standard configs; every LDE of a prove has the same shape)
+@pytest.mark.parametrize("log_n,rate_bits,ok", [
+    (5, 1, True), (10, 1, True), (20, 1, True), (3, 3, True), (15, 3, True),
+    (16, 3, True), (8, 3, True), (0, 0, True),
+    (4, 8, True), (6, 6, True), (2, 11, True),   # one pass: any rate
+    (2, 12, False), (12, 11, False),             # more than the first pass
+    (30, 4, False)])                             # more than 2^33 points
 def test_lde3_rate_bits_fit_the_first_pass(log_n, rate_bits, ok):
-    """ntt.cu's coset_lde3 skips the zero padding inside its first pass, so
-    2^rate_bits may not exceed that pass's length (2^(ceil(log N / 2)) up to
-    2^22 points, 2^11 above); the wrapper rejects such a shape before it
-    reaches the card."""
-    c = GF(torch.zeros(1, 1 << log_n, dtype=torch.int64))
-    match = "CUDA" if ok else "first pass"
-    with pytest.raises(ValueError, match=match):
-        ntt.lde3_cuda(c, rate_bits)
+    """ntt.cu's lde entry skips the zero padding inside the first pass of
+    its plan, so 2^rate_bits may not exceed that pass's length (the whole
+    transform up to 2^13 points, 2^ceil(log N / 2) up to 2^18, 2^ceil(log N
+    / 3) above), and the plan covers at most 2^33 points; the wrapper
+    rejects other shapes before it reaches the card."""
+    # the wrapper reads only the shape: a broadcast view holds no memory
+    c = GF(torch.zeros(1, 1, dtype=torch.int64).expand(1, 1 << log_n))
+    with pytest.raises(ValueError, match="CUDA" if ok else "exceed"):
+        ntt.lde_cuda(c, rate_bits)
 
 
 def test_from_values_cap_matches_jax():

@@ -17,9 +17,11 @@ from plonky2_tpu.hash import hashing as jhashing
 from plonky2_tpu.hash.merkle import MerkleTree as JMerkleTree
 from plonky2_tpu.hash.poseidon import permute as jpermute
 from plonky2_tpu.hash.poseidon import permute_np as jpermute_np
+from plonky2_tpu_torch.field import gl64
 from plonky2_tpu_torch.field.goldilocks import GF
 from plonky2_tpu_torch.hash import hashing
 from plonky2_tpu_torch.hash import poseidon
+from plonky2_tpu_torch.hash import poseidon_constants as C
 from plonky2_tpu_torch.hash.merkle import (MerkleTree, verify_merkle_proof_to_cap,
                                           verify_merkle_proofs_to_cap)
 
@@ -51,6 +53,85 @@ def test_permute_dispatch_is_by_device(rng):
     assert poseidon.POSEIDON.launches == before        # CPU: plain version
     with pytest.raises(ValueError, match="CUDA"):
         poseidon.permute_cuda(GF.from_u64(states.reshape(6, 12), "cpu").v)
+
+
+def _permute_fast_schedule_np(state):
+    """A numpy mirror of csrc/poseidon.cu's round schedule: the canonical
+    full rounds around the reference's fast partial rounds (poseidon.rs:584),
+    in the kernel's constant order."""
+    s = [state[:, i].copy() for i in range(12)]
+    rc = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(30, 12)
+
+    def full(s, r):
+        s = np.stack(s, axis=1)
+        s = poseidon._sbox_np(gl64.add(s, rc[r]))
+        s = poseidon._mds_np(s)
+        return [s[:, i] for i in range(12)]
+
+    def dot(terms):
+        acc = np.zeros_like(s[0])
+        for a, b in terms:
+            acc = gl64.add(acc, gl64.mul(a, np.uint64(b)))
+        return acc
+
+    for r in range(4):
+        s = full(s, r)
+    s = [gl64.add(s[i], np.uint64(C.FAST_PARTIAL_FIRST_ROUND_CONSTANT[i]))
+         for i in range(12)]
+    init = C.FAST_PARTIAL_ROUND_INITIAL_MATRIX
+    s = [s[0]] + [dot([(s[r], init[r - 1][c - 1]) for r in range(1, 12)])
+                  for c in range(1, 12)]
+    for r in range(22):
+        s0 = gl64.add(poseidon._sbox_np(s[0]),
+                      np.uint64(C.FAST_PARTIAL_ROUND_CONSTANTS[r]))
+        w, v = C.FAST_PARTIAL_ROUND_W_HATS[r], C.FAST_PARTIAL_ROUND_VS[r]
+        d = dot([(s0, C.MDS_MATRIX_CIRC[0] + C.MDS_MATRIX_DIAG[0])]
+                + [(s[i], w[i - 1]) for i in range(1, 12)])
+        s = [d] + [gl64.add(gl64.mul(s0, np.uint64(v[i - 1])), s[i])
+                   for i in range(1, 12)]
+    for r in range(26, 30):
+        s = full(s, r)
+    return np.stack(s, axis=1)
+
+
+def test_kernel_round_schedule_matches_permute_np(rng):
+    """The fast partial-round schedule that csrc/poseidon.cu runs gives the
+    canonical permutation on random, noncanonical ([p, 2^64)) and zero
+    states."""
+    states = rng.integers(0, 1 << 64, size=(64, 12), dtype=np.uint64)
+    states[0] = 0
+    states[1:17] = np.uint64(P) + rng.integers(0, (1 << 32) - 1, size=(16, 12),
+                                               dtype=np.uint64)
+    states[17] = np.uint64((1 << 64) - 1)
+    assert np.array_equal(gl64.to_canonical(_permute_fast_schedule_np(states)),
+                          gl64.to_canonical(poseidon.permute_np(states)))
+
+
+@pytest.mark.parametrize("length", [5, 8, 9, 135])
+def test_sponge_plain_matches_jax(rng, length):
+    """The plain version of the fused sponge kernel (hash_no_pad_torch)
+    against the JAX package's host sponges, and at length 9 its jitted
+    device sponge too (the shape test_hashing_matches_jax_and_host compiles:
+    each new length costs the JAX side a compile of the whole unrolled
+    sponge, 10 s at length 8 and 2 min at 135 on a CPU)."""
+    x = rng.integers(0, 1 << 64, size=(2, length), dtype=np.uint64)
+    got = GF(hashing.hash_no_pad_torch(GF.from_u64(x, "cpu").v)).to_u64()
+    assert np.array_equal(got, jhashing.hash_no_pad_np(x))
+    assert np.array_equal(hashing.hash_or_noop(GF.from_u64(x, "cpu")).to_u64(),
+                          jhashing.hash_or_noop_np(x))
+    if length == 9:
+        assert np.array_equal(got, jhashing.hash_no_pad(JGF.from_u64(x)).to_u64())
+
+
+def test_hash_rows_dispatch_is_by_device(rng):
+    x = rng.integers(0, P, size=(3, 2, 9), dtype=np.uint64)
+    before = hashing.HASH_ROWS.launches
+    got = hashing.hash_no_pad(GF.from_u64(x, "cpu"))
+    assert got.shape == (3, 2, 4)
+    assert hashing.HASH_ROWS.launches == before       # CPU: plain version
+    assert np.array_equal(got.to_u64(), hashing.hash_no_pad_np(x))
+    with pytest.raises(ValueError, match="CUDA"):
+        hashing.hash_rows_cuda(GF.from_u64(x.reshape(6, 9), "cpu").v)
 
 
 def test_hashing_matches_jax_and_host(rng):
