@@ -12,31 +12,50 @@ Phases, one line each:
   2. Poseidon permutation kernel against its plain torch version on 2^17
      states, noncanonical and zero states among them (exact);
   3. the fused sponge kernel (poseidon_hash_rows) against the plain
-     hash_no_pad loop at (2^18 rows, 135) and (2^15 rows, 9) (exact);
+     hash_no_pad loop at (2^18 rows, 135), (2^15 rows, 9) and (2^10 rows,
+     2481), the zkEVM KeccakStark's trace leaves (exact);
   4. the LDE kernel (ntt.cu's lde entry) against lde_torch at the plonk
      wires' (135, 2^15) r=3, (64, 2^16) r=3, the STARK trace's (4, 2^20)
-     r=1 and (16, 2^8) r=3, a one-pass shape (exact);
+     r=1, (16, 2^8) r=3 (one pass), and the zkEVM transfer's KeccakStark
+     (2481, 2^9) r=1 and MemoryStark (21, 2^21) r=1 (exact);
   5. the NTT kernel (ntt.cu) against the plain *_torch transforms: intt of
      (135, 2^15), coset_intt of (2, 2^18), coset_ntt of (2, 2^20), ntt of
-     (8, 2^16) and of (1, 2^23), the three-pass plan (exact);
+     (8, 2^16), of (1, 2^23) (the three-pass plan) and coset_intt of
+     (4, 2^22), the MemoryStark quotient (exact);
   6. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
      proof bytes, and a wrong public result is rejected by the verifier;
   7. an m = 2 matrix-multiplication plonk proof (standard_recursion_config)
      proved on cuda and on cpu gives the same proof bytes, the verifier
      accepts it and rejects a tampered public input; an m = 2 proof under
      standard_recursion_zk_config verifies;
-  8. the STARK path at full size: a 2^20-row Fibonacci STARK under
+  8. small multi-table proofs (models/multi_table.py: the three-table CTL
+     demo and Logic + Memory + a bus table) under standard_fast_config and
+     under the keccak config, each proved on cuda and on cpu with equal
+     multi_proof_to_bytes, verified, and rejected with a tampered CTL Z;
+  9. a two-LUT lookup plonk circuit and an m = 2 matmul circuit under
+     standard_keccak_config, each proved on cuda and on cpu with equal
+     proof bytes and verified;
+ 10. the STARK path at full size: a 2^20-row Fibonacci STARK under
      StarkConfig.standard_fast_config() proved twice on cuda and verified,
      with each kernel's calls and kernel launches on that path;
-  9. the same prove once more under torch.profiler: device busy time, the
+ 11. the same prove once more under torch.profiler: device busy time, the
      device's idle share of the wall time, and device time by kernel;
- 10. the plonk path at full size: the m = 64 matrix-multiplication circuit
+ 12. the plonk path at full size: the m = 64 matrix-multiplication circuit
      (degree 2^15, standard_recursion_config) built once on cuda, proved
      twice (cold, warm) and verified, with per-phase times, peak memory and
      each kernel's calls and launches on that path;
- 11. the warm plonk prove once more under torch.profiler;
- 12. a JSON line with every kernel's launches, device ms per prove, times
-     and bound.
+ 13. the warm plonk prove once more under torch.profiler;
+ 14. the zkEVM path: one transfer block (zkevm.transfer.prove_transfer,
+     seven tables, arith_limb_bits=16, standard_fast_config) proved twice
+     (cold, warm) with the simulation and trace-generation seconds, the
+     table shapes, per-table phases and peak device memory, each kernel's
+     calls and launches, the keccak backend, and verify_transfer_proof
+     (ROM binding included) accepting it; in the warm prove each ported
+     kernel's device time (CUDA events around its calls) and the device's
+     busy share from nvidia-smi's utilization samples (the prove's
+     millions of launches are too many for torch.profiler's parsing);
+ 15. a JSON line with every kernel's launches and device ms per prove on
+     each path, times and bound.
 A kernel that a path should run and that launched no time there fails the
 run.  The last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before it.  Times are medians of CUDA-event timings after a
@@ -45,6 +64,7 @@ warm-up.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -97,8 +117,13 @@ def poseidon_muls() -> dict:
             "fast": sboxes + C.N_FULL_ROUNDS_TOTAL * mds + fast_partial}
 
 
+START = time.perf_counter()
+
+
 def line(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One phase's JSON line; "t" is the seconds since the script began."""
+    print(json.dumps({"phase": phase, **kv,
+                      "t": time.perf_counter() - START}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -239,19 +264,29 @@ def host_canonical(x) -> np.ndarray:
     return canonical(x.v).cpu().numpy().view(np.uint64)
 
 
-def hash_rows_case(rows: int, length: int, seed: int) -> dict:
+def hash_rows_case(rows: int, length: int, seed: int,
+                   plain_reps: int = 1) -> dict:
     """The fused sponge against the plain hash_no_pad loop.  The bound
     counts ceil(L / 8) permutations per row against reading the rows and
-    writing 4 elements per row."""
+    writing 4 elements per row.  plain_reps=0 times the plain version by
+    the one call that checks the kernel (a row of 2,481 elements is 311
+    sequential plain permutation calls, ~27 s), not by a median."""
     from plonky2_tpu_torch.field.goldilocks import GF
     from plonky2_tpu_torch.hash import hashing
     x = random_gf((rows, length), seed).v
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = hashing.hash_no_pad_torch(x)
+    end.record()
+    torch.cuda.synchronize()
     err = max_abs_err(host_canonical(GF(hashing.hash_rows_cuda(x))),
-                      host_canonical(GF(hashing.hash_no_pad_torch(x))))
+                      host_canonical(GF(want)))
     if err:
         fail(f"poseidon_hash_rows differs from hash_no_pad_torch at {(rows, length)}")
     ms = cuda_ms(lambda: hashing.hash_rows_cuda(x), reps=10)
-    plain_ms = cuda_ms(lambda: hashing.hash_no_pad_torch(x), reps=1)
+    plain_ms = (cuda_ms(lambda: hashing.hash_no_pad_torch(x), reps=plain_reps)
+                if plain_reps else start.elapsed_time(end))
     perms = rows * -(-length // 8)
     bound_ms, bound_by = bound(perms * min(poseidon_muls().values()),
                                8 * rows * (length + 4))
@@ -265,6 +300,8 @@ def hash_rows_case(rows: int, length: int, seed: int) -> dict:
 def phase_hash_rows() -> dict:
     main = hash_rows_case(1 << 18, 135, seed=12)   # plonk wires' leaves
     hash_rows_case(1 << 15, 9, seed=13)
+    hash_rows_case(1 << 10, 2481, seed=15,        # KeccakStark's trace leaves
+                   plain_reps=0)
     return entry("poseidon_hash_rows", "plonky2_tpu_torch/csrc/poseidon.cu",
                  "plonky2_tpu/ops/poseidon_pallas.py:240", main)
 
@@ -307,6 +344,8 @@ def phase_lde() -> dict:
     lde_case(64, 16, 3, seed=3)           # bench.py's LDE shape
     lde_case(4, 20, 1, seed=4)            # the 2^20 STARK trace
     lde_case(16, 8, 3, seed=8)            # 2^11 points: one pass
+    lde_case(2481, 9, 1, seed=16)         # the transfer's KeccakStark trace
+    lde_case(21, 21, 1, seed=17)          # the transfer's MemoryStark trace
     e = entry("lde", "plonky2_tpu_torch/csrc/ntt.cu",
               "plonky2_tpu/ops/mxu_lde_pallas.py:304", main)
     e["also_replaces"] = ["plonky2_tpu/ops/mxu_lde3_pallas.py:249"]
@@ -353,6 +392,7 @@ def phase_ntt() -> dict:
     ntt_case("coset_ntt", 2, 20, seed=7)       # STARK opening quotients
     ntt_case("ntt", 8, 16, seed=14)            # tools/pallas_ntt*.py's 2^16
     ntt_case("ntt", 1, 23, seed=11)            # the three-pass plan
+    ntt_case("coset_intt", 4, 22, seed=18)     # MemoryStark's quotient
     e = entry("ntt", "plonky2_tpu_torch/csrc/ntt.cu",
               "plonky2_tpu/ops/mxu_ntt_pallas.py:203", main)
     e["also_replaces"] = ["tools/pallas_ntt_proto.py:89",
@@ -446,6 +486,106 @@ def phase_small_plonk() -> None:
          zk_prove_seconds=zk_secs, zk_verified=True)
 
 
+def phase_small_multi(devices=("cuda", "cpu")) -> None:
+    """The three-table CTL demo and the Logic + Memory + bus demo
+    (models/multi_table.py) under the Poseidon and the keccak configs:
+    proved on cuda and on cpu with equal multi_proof_to_bytes, accepted by
+    the verifier, and rejected once the looked table's final CTL product
+    is tampered with."""
+    from plonky2_tpu_torch.field import gl64
+    from plonky2_tpu_torch.models.multi_table import ctl_demo, zkevm_bus_demo
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.multi import (prove_multi_table,
+                                               verify_multi_table)
+    from plonky2_tpu_torch.zkevm.serialization import multi_proof_to_bytes
+    sizes = {}
+    for name, demo in (("ctl_demo", ctl_demo),
+                       ("zkevm_bus_demo", zkevm_bus_demo)):
+        for hasher in ("poseidon", "keccak"):
+            starks, ctls, traces = demo()
+            config = StarkConfig(hasher=hasher)
+            proofs = [prove_multi_table(starks, ctls, config, traces,
+                                        device=d) for d in devices]
+            data = [multi_proof_to_bytes(p, hasher) for p in proofs]
+            if data[0] != data[-1]:
+                fail(f"{name} proof bytes under {hasher} differ between "
+                     f"{devices[0]} and {devices[-1]}")
+            proof = proofs[0]
+            verify_multi_table(starks, ctls, proof, config)
+            last = proof.stark_proofs[0].openings.ctl_zs_last
+            last[0] = gl64.add(last[0], np.uint64(1))
+            try:
+                verify_multi_table(starks, ctls, proof, config)
+            except AssertionError:
+                pass
+            else:
+                fail(f"{name}: a tampered CTL Z was accepted under {hasher}")
+            sizes[f"{name}/{hasher}"] = len(data[0])
+    line("small_multi", proof_bytes=sizes, cuda_equals_cpu=True,
+         verified=True, tampered_ctl_z_rejected=True)
+
+
+TIP5_IN = list(range(8))
+TIP5_OUT = [y & 0xFFFF for y in (0xDEAD, 0xBEEF, 17, 255, 0, 3, 7, 8)]
+
+
+def two_luts_circuit(device):
+    """The reference package's two-LUT lookup circuit (its
+    tests/test_lookup.py): y = TIP5[x], s = (7^2 + 1), y + s public."""
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    b = CircuitBuilder(CircuitConfig(fri_config=FriConfig(
+        rate_bits=3, cap_height=4, proof_of_work_bits=8,
+        reduction_strategy=FriReductionStrategy.constant_arity(4, 5),
+        num_query_rounds=4)))
+    lut_a = b.add_lookup_table_from_table(TIP5_IN, TIP5_OUT)
+    lut_b = b.add_lookup_table_from_fn(lambda x: (x * x + 1) & 0xFFFF,
+                                       list(range(16)))
+    x = b.add_virtual_target()
+    y = b.add_lookup_from_index(x, lut_a)
+    s = b.add_lookup_from_index(b.constant(7), lut_b)
+    b.register_public_inputs([x, y, s, b.add(y, s)])
+    return b.build(device), x
+
+
+def phase_small_plonk_extra(devices=("cuda", "cpu")) -> None:
+    """A lookup circuit and an m = 2 matmul circuit under
+    standard_keccak_config, each proved on cuda and on cpu with equal
+    proof bytes and verified."""
+    from plonky2_tpu_torch.models.matrix_mul import (build_matrix_mul_circuit,
+                                                     matrix_mul_witness)
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
+    from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
+    a, b = matmul_inputs(2, seed=19)
+    out = {}
+    for name in ("two_luts", "matmul_m2_keccak"):
+        data_bytes = []
+        for device in devices:
+            if name == "two_luts":
+                data, x = two_luts_circuit(device)
+                pw = PartialWitness()
+                pw.set_target(x, 6)
+            else:
+                data, at, bt = build_matrix_mul_circuit(
+                    2, CircuitConfig.standard_keccak_config(), device=device)
+                pw = matrix_mul_witness(at, bt, a, b)
+            data.prover_only.schedule.rng_seed = 1   # the PI gate's wires
+            proof = data.prove(pw)
+            data.verify(proof)
+            data_bytes.append(proof_with_pis_to_bytes(proof))
+        if name == "two_luts" and \
+                list(map(int, proof.public_inputs)) != [6, 7, 50, 57]:
+            fail("the lookup circuit's public inputs are wrong")
+        if data_bytes[0] != data_bytes[-1]:
+            fail(f"{name} proof bytes differ between {devices[0]} and "
+                 f"{devices[-1]}")
+        out[name] = len(data_bytes[0])
+    line("small_plonk_extra", proof_bytes=out, cuda_equals_cpu=True,
+         verified=True)
+
+
 def run_path(path: str, prove, kernels: list, required: list) -> dict:
     """prove(timing) twice (cold, warm), each with every kernel count set to
     0 just before it and read just after; fails if a kernel of the path
@@ -532,6 +672,198 @@ def phase_plonk(kernels: list, required: list):
     return warm["launches"], lambda: data.prove(pw)
 
 
+# The reference package's tests/test_zkevm_transfer.py _base_inputs(): sender
+# A holds 10^18 wei at nonce 5 and sends 4 * 10^15 wei to a fresh account B
+# at gas price 10, in block 1 with a coinbase.
+SENDER = bytes.fromhex("a94f5374fce5edbc8e2a8697c15331677e6ebf0b")
+RECIPIENT = bytes.fromhex("095e7baea6a6c7c4c2dfeb977efac326af552d87")
+COINBASE = bytes.fromhex("2adc25665018aa1fe0e6bc666dac8fc2697ff9ba")
+
+# (columns, rows) of the seven tables of that block at arith_limb_bits=16
+TRANSFER_TABLES = {"CpuStark": (139, 1 << 19), "MemoryStark": (21, 1 << 21),
+                   "LogicStark": (523, 1 << 11),
+                   "ArithmeticStark": (303, 1 << 16),
+                   "KeccakSpongeStark": (413, 1 << 5),
+                   "KeccakStark": (2481, 1 << 9),
+                   "ProgramStark": (11, 1 << 15)}
+
+
+def transfer_inputs():
+    from plonky2_tpu_torch.zkevm import mpt
+    from plonky2_tpu_torch.zkevm.transfer import (BlockMetadata,
+                                                  GenerationInputs, Transfer)
+    state = mpt.trie_insert(mpt.Empty(), mpt.state_key(SENDER),
+                            mpt.Account(nonce=5, balance=10 ** 18).encode())
+    return GenerationInputs(
+        txn=Transfer(sender=SENDER, to=RECIPIENT, value=4 * 10 ** 15,
+                     nonce=5, gas_price=10),
+        tries=mpt.TrieInputs(state_trie=state),
+        block_metadata=BlockMetadata(beneficiary=COINBASE, number=1,
+                                     timestamp=1_000_000))
+
+
+class TablePeaks:
+    """Peak device memory of each table's prove, and of the trace
+    commitments and CTL data before the first table: wraps
+    stark.multi.prove_single_table and resets the peak at each table's
+    start and end, so each interval's peak is read on its own."""
+
+    def __init__(self):
+        from plonky2_tpu_torch.stark import multi
+        self.multi = multi
+        self.original = multi.prove_single_table
+        self.peaks = {}
+
+    def _measured(self, stark, *args, **kwargs):
+        torch.cuda.synchronize()
+        if not self.peaks:
+            self.peaks["trace commitments + CTL data"] = \
+                torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        proof = self.original(stark, *args, **kwargs)
+        torch.cuda.synchronize()
+        self.peaks[type(stark).__name__] = torch.cuda.max_memory_allocated()
+        return proof
+
+    def __enter__(self):
+        self.multi.prove_single_table = self._measured
+        return self
+
+    def __exit__(self, *exc):
+        self.multi.prove_single_table = self.original
+
+
+class ProveWindow:
+    """Device measurements of the multi-table prove inside prove_transfer
+    (simulation and trace generation excluded), for a prove too large for
+    torch.profiler (millions of launches: its event parsing did not finish
+    in 10 minutes): each ported kernel call's device time by CUDA events
+    recorded just before and after it on its stream, and nvidia-smi's
+    utilization.gpu (the share of each sample period in which a kernel
+    ran) every 100 ms.  Wraps zkevm.generation's prove_multi_table."""
+
+    def __init__(self, kernels: list):
+        from plonky2_tpu_torch.utils.cuda import CudaKernel
+        from plonky2_tpu_torch.zkevm import generation
+        self.generation = generation
+        self.kernel_cls = CudaKernel
+        self.prove = generation.prove_multi_table
+        self.call = CudaKernel.__call__
+        self.events = {k.symbol: [] for k in kernels}
+        self.samples = []
+
+    def _timed_call(self, kernel, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.call(kernel, *args)
+        end.record()
+        self.events[kernel.symbol].append((start, end))
+
+    def _measured_prove(self, *args, **kwargs):
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            self.kernel_cls.__call__ = \
+                lambda kernel, *a: self._timed_call(kernel, *a)
+            proof = self.prove(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            self.kernel_cls.__call__ = self.call
+            smi.terminate()
+            out, _ = smi.communicate(timeout=30)
+        self.samples = [float(x) for x in out.split()]
+        return proof
+
+    def __enter__(self):
+        self.generation.prove_multi_table = self._measured_prove
+        return self
+
+    def __exit__(self, *exc):
+        self.generation.prove_multi_table = self.prove
+
+    def kernel_ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {sym: sum(s.elapsed_time(e) for s, e in evs)
+                for sym, evs in self.events.items()}
+
+
+def phase_zkevm_transfer(kernels: list, required: list):
+    """The zkEVM path: one transfer block through zkevm.transfer.prove_transfer
+    at arith_limb_bits=16 under standard_fast_config, twice (cold, warm),
+    each with every kernel count set to 0 just before it and read just
+    after, the warm one inside a ProveWindow; the seven table shapes
+    checked; verify_transfer_proof (ROM binding included) must accept.
+    Returns the warm run's launches and its kernels' device ms."""
+    from plonky2_tpu_torch import native
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.utils.timing import TimingTree
+    from plonky2_tpu_torch.zkevm.transfer import (prove_transfer,
+                                                  verify_transfer_proof)
+    inputs = transfer_inputs()
+    config = StarkConfig.standard_fast_config()
+    runs = []
+    window = ProveWindow(kernels)
+    for run in ("cold", "warm"):
+        for k in kernels:
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        timing = TimingTree("prove_transfer", "cuda")
+        t0 = time.perf_counter()
+        with TablePeaks() as peaks, \
+                (window if run == "warm" else contextlib.nullcontext()):
+            proof, starks, ctls, pv = prove_transfer(inputs, config,
+                                                     timing=timing)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        timing.close()
+        generate, prove = timing.children
+        runs.append({
+            "seconds": secs,
+            "simulate_and_trace_seconds": generate.duration(),
+            "prove_seconds": prove.duration(),
+            "launches": {k.symbol: k.launches for k in kernels},
+            "calls": {k.symbol: k.calls for k in kernels},
+            "timing": prove.as_dict(),
+            "peak_memory_by_table": peaks.peaks,
+            "max_memory_allocated": max(peaks.peaks.values())})
+    kernel_ms = window.kernel_ms()
+    if not window.samples:
+        fail("nvidia-smi gave no utilization samples during the prove")
+    utilization = statistics.mean(window.samples) / 100
+    warm = runs[1]
+    for k in required:
+        if warm["launches"][k.symbol] == 0:
+            fail(f"kernel {k.symbol} was not launched on the zkevm_transfer "
+                 "path")
+    shapes = {type(s).__name__: (s.COLUMNS, 1 << p.degree_bits)
+              for s, p in zip(starks, proof.stark_proofs)}
+    if shapes != TRANSFER_TABLES:
+        fail(f"transfer tables {shapes} differ from {TRANSFER_TABLES}")
+    t0 = time.perf_counter()
+    verify_transfer_proof(starks, ctls, proof, pv, config)
+    verify_s = time.perf_counter() - t0
+    line("zkevm_transfer", arith_limb_bits=16, tables=shapes,
+         trace_bytes=sum(8 * c * n for c, n in shapes.values()),
+         simulate_and_trace_seconds=[r["simulate_and_trace_seconds"]
+                                     for r in runs],
+         prove_seconds_cold=runs[0]["prove_seconds"],
+         prove_seconds_warm=warm["prove_seconds"],
+         prove_transfer_seconds=[r["seconds"] for r in runs],
+         verify_seconds=verify_s, verified=True, rom_binding_checked=True,
+         keccak_backend=native.backend(), calls=warm["calls"],
+         launches=warm["launches"], kernel_device_ms=kernel_ms,
+         utilization_samples=len(window.samples),
+         device_busy_share_smi=utilization,
+         device_idle_share_smi=1 - utilization,
+         max_memory_allocated=warm["max_memory_allocated"],
+         peak_memory_by_table=warm["peak_memory_by_table"],
+         timing=warm["timing"])
+    return warm["launches"], kernel_ms
+
+
 # The __global__ functions behind each C entry point, as the profiler names them.
 KERNEL_FUNCTIONS = {"poseidon_permute": ("poseidon_kernel",),
                     "poseidon_hash_rows": ("hash_rows_kernel",),
@@ -591,19 +923,24 @@ def main() -> int:
     entries = [phase_poseidon(), phase_hash_rows(), phase_lde(), phase_ntt()]
     phase_small_proofs()
     phase_small_plonk()
+    phase_small_multi()
+    phase_small_plonk_extra()
     kernels = [POSEIDON, HASH_ROWS, LDE, NTT]
     stark_launches, stark_prove = phase_full_prove(kernels, required=kernels)
     stark_profile = phase_profile("stark 2^20 rows", stark_prove, kernels)
     plonk_launches, plonk_prove = phase_plonk(kernels, required=kernels)
     plonk_profile = phase_profile("plonk m=64", plonk_prove, kernels)
+    zkevm_launches, zkevm_ms = phase_zkevm_transfer(kernels, required=kernels)
     for e, k in zip(entries, kernels):
         by_path = {"stark_2^20": stark_launches[k.symbol],
-                   "plonk_m64": plonk_launches[k.symbol]}
+                   "plonk_m64": plonk_launches[k.symbol],
+                   "zkevm_transfer": zkevm_launches[k.symbol]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         e["device_ms_per_prove"] = {
             "stark_2^20": stark_profile[k.symbol]["device_ms"],
-            "plonk_m64": plonk_profile[k.symbol]["device_ms"]}
+            "plonk_m64": plonk_profile[k.symbol]["device_ms"],
+            "zkevm_transfer": zkevm_ms[k.symbol]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

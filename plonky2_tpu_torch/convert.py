@@ -18,6 +18,7 @@ import numpy as np
 from .field.goldilocks import GF
 from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
+from .hash.keccak_tree import BytesMerkleCap
 from .hash.merkle import MerkleCap
 from .plonk import targets as tg
 from .plonk.circuit_data import (CircuitData, CommonCircuitData,
@@ -172,10 +173,6 @@ def circuit_data_from_jax(data, device=None) -> CircuitData:
     device = resolve_device(device)
     jc = data.common
     config = circuit_config_from_jax(jc.config)
-    if config.hasher != "poseidon":
-        raise NotImplementedError(
-            f"hasher {config.hasher!r}: the keccak configs are ported with "
-            "the multi-table STARK slice")
     fp = jc.fri_params
     common = CommonCircuitData(
         config=config,
@@ -199,9 +196,12 @@ def circuit_data_from_jax(data, device=None) -> CircuitData:
     jcs = jp.constants_sigmas_commitment
     commitment = PolynomialBatch.from_coeffs(
         gf_from_jax(jcs.polynomials, device), jcs.rate_bits, False,
-        config.fri_config.cap_height)
-    cap = MerkleCap(np.asarray(data.verifier_only.constants_sigmas_cap.data,
-                               np.uint64).copy())
+        config.fri_config.cap_height, hasher=config.hasher)
+    cap_data = np.asarray(data.verifier_only.constants_sigmas_cap.data).copy()
+    cap = (BytesMerkleCap(cap_data) if config.hasher == "keccak"
+           else MerkleCap(cap_data.astype(np.uint64)))
+    # Poseidon digests are u64 felts, keccak digests raw bytes
+    digest_dtype = np.uint8 if config.hasher == "keccak" else np.uint64
     if commitment.merkle_tree.cap != cap:
         raise ValueError("re-committed constants/sigmas cap differs from the "
                          "JAX circuit's")
@@ -211,10 +211,10 @@ def circuit_data_from_jax(data, device=None) -> CircuitData:
         sigmas=np.asarray(jp.sigmas, np.uint64).copy(),
         subgroup=np.asarray(jp.subgroup, np.uint64).copy(),
         public_inputs=list(jp.public_inputs),
-        circuit_digest=np.asarray(jp.circuit_digest, np.uint64).copy(),
+        circuit_digest=np.asarray(jp.circuit_digest, digest_dtype).copy(),
         lookup_rows=list(jp.lookup_rows or []))
     verifier_only = VerifierOnlyCircuitData(
         constants_sigmas_cap=cap,
         circuit_digest=np.asarray(data.verifier_only.circuit_digest,
-                                  np.uint64).copy())
+                                  digest_dtype).copy())
     return CircuitData(prover_only, verifier_only, common)

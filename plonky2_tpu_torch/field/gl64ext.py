@@ -91,14 +91,28 @@ def is_zero(x):
     return np.all(to_canonical(x) == 0, axis=-1)
 
 
+def total(x):
+    """Sum of an (n, 2) array of extension elements -> (2,), by pairwise
+    halving (one vectorised add per level)."""
+    x = np.asarray(x, dtype=np.uint64).reshape(-1, 2)
+    if x.shape[0] == 0:
+        return ZERO.copy()
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = np.concatenate([x, ZERO[None]], axis=0)
+        x = add(x[0::2], x[1::2])
+    return x[0]
+
+
 def powers(base, n: int):
-    """[1, base, ..., base^(n-1)], shape (n, 2)."""
-    out = np.empty((n, 2), dtype=np.uint64)
-    acc = np.broadcast_to(ONE, (2,)).copy()
-    for i in range(n):
-        out[i] = acc
-        acc = mul(acc, base)
-    return out
+    """[1, base, ..., base^(n-1)], shape (n, 2), by doubling: a table of
+    length k extends to 2k via table * base^k (vectorised)."""
+    out = ONE[None].copy()
+    bk = np.asarray(base, dtype=np.uint64).reshape(2)
+    while out.shape[0] < n:
+        out = np.concatenate([out, mul(out, bk)], axis=0)
+        bk = square(bk)
+    return out[:n]
 
 
 def flatten(x):

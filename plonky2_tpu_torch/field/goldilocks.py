@@ -20,6 +20,8 @@ CUDA kernels (csrc/) reinterpret the same buffers as ``uint64_t``.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -105,9 +107,17 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return reduce128(hi, lo)
 
 
-def _scalar(value: int, device) -> torch.Tensor:
-    return torch.tensor(to_i64(int(value) % ORDER), dtype=torch.int64,
-                        device=device)
+@lru_cache(maxsize=4096)
+def _scalar_tensor(value: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(to_i64(value), dtype=torch.int64, device=device)
+
+
+def scalar(value: int, device) -> torch.Tensor:
+    """A 0-d tensor holding value mod p, shared by every caller that asks
+    for the same value on the same device: constraint code multiplies by
+    the same constants and challenges thousands of times, and a new CUDA
+    scalar each time is a host-to-device copy.  Never written in place."""
+    return _scalar_tensor(int(value) % ORDER, torch.device(device))
 
 
 class GF:
@@ -187,7 +197,7 @@ class GF:
         if isinstance(other, GF):
             return other.v
         if isinstance(other, (int, np.integer)):
-            return _scalar(int(other), self.v.device)
+            return scalar(int(other), self.v.device)
         raise TypeError(f"cannot coerce {type(other)} to GF")
 
     def __add__(self, other) -> "GF":

@@ -73,9 +73,6 @@ def interpolate_ext_np(xs: np.ndarray, ys: np.ndarray, weights: np.ndarray,
     l_x = gl64ext.ONE
     for d in diffs:
         l_x = gl64ext.mul(l_x, d)
-    inv_diffs = np.stack([gl64ext.inv(d) for d in diffs])
-    acc = gl64ext.ZERO
-    for i in range(len(xs)):
-        term = gl64ext.mul(gl64ext.scalar_mul(inv_diffs[i], weights[i]), ys[i])
-        acc = gl64ext.add(acc, term)
-    return gl64ext.mul(l_x, acc)
+    # sum_i w_i y_i / (x - x_i), all terms at once (one vectorised inverse)
+    terms = gl64ext.mul(gl64ext.scalar_mul(gl64ext.inv(diffs), weights), ys)
+    return gl64ext.mul(l_x, gl64ext.total(terms))

@@ -3,7 +3,9 @@
 Twin of reference fri/oracle.rs:43-220.  Commit: iNTT of the value rows,
 coset LDE (the CUDA kernels on the card), transpose to row leaves (plus
 SALT_SIZE random columns when blinding), bit-reversal gather, and a
-level-batched Poseidon Merkle tree.
+Merkle tree: level-batched Poseidon on the device, or, under the keccak
+config, a keccak byte-digest tree hashed on the host
+(hash/keccak_tree.py) over the device LDE's leaf rows.
 ``prove_openings`` builds the FRI composition polynomial with alpha powers
 and divides (F(X) - F(z)) / (X - z) in the value domain over the coset
 (one batch inversion + coset iNTT) instead of the reference's sequential
@@ -20,6 +22,7 @@ from ..field import gl64, ntt
 from ..field.extension import GF2
 from ..field.goldilocks import GF, batch_inv
 from ..field.polynomial import eval_ext_polys_at_ext, powers_ext
+from ..hash.keccak_tree import BytesMerkleTree
 from ..hash.merkle import MerkleTree
 from ..iop.challenger import Challenger
 from ..utils.bits import log2_strict, reverse_index_bits_perm
@@ -53,24 +56,29 @@ class PolynomialBatch:
     """A batch of committed polynomials: coefficients on the device, their
     natural-order LDE values, and the Merkle tree of the LDE rows."""
 
-    def __init__(self, polynomials: GF, lde_values: GF, merkle_tree: MerkleTree,
-                 degree_log: int, rate_bits: int, blinding: bool):
+    def __init__(self, polynomials: GF, lde_values: GF, merkle_tree,
+                 degree_log: int, rate_bits: int, blinding: bool,
+                 hasher: str = "poseidon"):
         self.polynomials = polynomials   # (num_polys, n) coefficient rows
         self.lde_values = lde_values     # (num_polys, n << rate_bits)
         self.merkle_tree = merkle_tree
         self.degree_log = degree_log
         self.rate_bits = rate_bits
         self.blinding = blinding
+        self.hasher = hasher
 
     @classmethod
     def from_values(cls, values: GF, rate_bits: int, blinding: bool,
-                    cap_height: int) -> "PolynomialBatch":
+                    cap_height: int,
+                    hasher: str = "poseidon") -> "PolynomialBatch":
         """values: (num_polys, n) evaluations over the subgroup."""
-        return cls.from_coeffs(ntt.intt(values), rate_bits, blinding, cap_height)
+        return cls.from_coeffs(ntt.intt(values), rate_bits, blinding,
+                               cap_height, hasher)
 
     @classmethod
     def from_coeffs(cls, polynomials: GF, rate_bits: int, blinding: bool,
-                    cap_height: int) -> "PolynomialBatch":
+                    cap_height: int,
+                    hasher: str = "poseidon") -> "PolynomialBatch":
         n = polynomials.shape[-1]
         lde_values = ntt.lde(polynomials, rate_bits, shift=COSET_SHIFT)
         leaf_cols = lde_values
@@ -88,9 +96,12 @@ class PolynomialBatch:
         # order (reference fri/oracle.rs:81-100)
         perm = reverse_index_bits_perm(n << rate_bits)
         leaves = leaf_cols.transpose(1, 0).take(perm, axis=0)
-        tree = MerkleTree(leaves, cap_height)
+        if hasher == "keccak":
+            tree = BytesMerkleTree(leaves, cap_height)
+        else:
+            tree = MerkleTree(leaves, cap_height)
         return cls(polynomials, lde_values, tree, log2_strict(n), rate_bits,
-                   blinding)
+                   blinding, hasher)
 
     def lde_values_natural(self) -> GF:
         """(num_polys, n << rate_bits) evaluations in natural coset order."""
@@ -134,4 +145,5 @@ class PolynomialBatch:
             lde_values = ntt.lde_ext(final_poly, rate_bits, shift=COSET_SHIFT)
 
         return fri_proof([o.merkle_tree for o in oracles], lde_coeffs,
-                         lde_values, challenger, fri_params, timing)
+                         lde_values, challenger, fri_params, timing,
+                         oracles[0].hasher)

@@ -3,8 +3,10 @@
 Twin of reference fri/prover.rs:20-216.  Folding runs in coefficient space
 (a strided beta reduction) followed by a shrinking coset NTT per round, the
 reference recurrence.  The PoW grind permutes batches of 2^16 candidate
-states on the device; query rounds gather Merkle paths for all rounds at
-once.
+states on the device (Poseidon), or hashes batches of 2^12 on the host
+(the keccak config's duplex); query rounds gather Merkle paths for all
+rounds at once.  Under the keccak config every commit-phase tree is a
+host keccak byte-digest tree.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from ..field import gl64, ntt
 from ..field.extension import GF2
 from ..field.goldilocks import GF, canonical, to_i64, ult
 from ..field.polynomial import powers_ext
+from ..hash.keccak_tree import BytesMerkleTree, _absorb_blocks
 from ..hash.merkle import MerkleProof, MerkleTree
 from ..hash.poseidon import permute
 from ..iop.challenger import Challenger
@@ -25,6 +28,7 @@ from .config import FriConfig, FriParams
 from .proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
 
 POW_BATCH = 1 << 16
+KECCAK_POW_BATCH = 1 << 12
 
 
 def _flatten_ext_leaves(values: GF2, arity: int) -> GF:
@@ -47,8 +51,9 @@ def _fold(coeffs: GF2, beta: GF2, arity: int, shift: int):
 
 
 def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
-                        fri_params: FriParams):
+                        fri_params: FriParams, hasher: str = "poseidon"):
     """Commit phase (reference fri/prover.rs:69-113)."""
+    tree_cls = BytesMerkleTree if hasher == "keccak" else MerkleTree
     trees = []
     shift = gl64.MULTIPLICATIVE_GROUP_GENERATOR
     device = coeffs.device
@@ -57,7 +62,7 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
         arity = 1 << arity_bits
         leaves = _flatten_ext_leaves(values.take(reverse_index_bits_perm(n)),
                                      arity)
-        tree = MerkleTree(leaves, fri_params.config.cap_height)
+        tree = tree_cls(leaves, fri_params.config.cap_height)
         challenger.observe_cap(tree.cap)
         trees.append(tree)
 
@@ -74,11 +79,67 @@ def fri_committed_trees(coeffs: GF2, values: GF2, challenger: Challenger,
     return trees, final_coeffs
 
 
+def _keccak_pow_witness(inter: np.ndarray, pos: int, threshold: int,
+                        unbounded: bool) -> np.uint64:
+    """Host grind under the keccak duplex (keccak_tree.keccak_permutation_np,
+    a hash onion): the response is output slot 7, word 3 of the second
+    onion hash, when none of the first 8 words is rejected (probability
+    ~2^-32 per word).  Rows with a rejected word are skipped, so the
+    witness is the lowest candidate that passes both tests; the replay
+    re-checks it."""
+    offset = 0
+    while True:
+        states = np.broadcast_to(inter, (KECCAK_POW_BATCH, 12)).copy()
+        states[:, pos] = np.arange(offset, offset + KECCAK_POW_BATCH,
+                                   dtype=np.uint64)
+        buf = gl64.to_canonical(states).astype("<u8").view(
+            np.uint8).reshape(KECCAK_POW_BATCH, 96)
+        h1 = _absorb_blocks(buf)
+        h2 = _absorb_blocks(h1)
+        words = np.concatenate([
+            h1.reshape(-1, 4, 8).copy().view("<u8").reshape(-1, 4),
+            h2.reshape(-1, 4, 8).copy().view("<u8").reshape(-1, 4),
+        ], axis=1).astype(np.uint64)
+        ok = (words < np.uint64(gl64.ORDER_INT)).all(axis=1)
+        if not unbounded:
+            ok &= words[:, 7] < np.uint64(threshold)
+        hits = np.nonzero(ok)[0]
+        if hits.size:
+            return np.uint64(offset + int(hits[0]))
+        offset += KECCAK_POW_BATCH
+        if offset >= (1 << 40):
+            raise RuntimeError("PoW grind failed")
+
+
+def _poseidon_pow_witness(inter: np.ndarray, pos: int, threshold: int,
+                          unbounded: bool, device) -> np.uint64:
+    """Device grind under the Poseidon duplex: the lowest candidate whose
+    response (output slot 7 of one permutation) is below the threshold."""
+    base = GF.from_u64(inter, device).v.reshape(1, 12)
+    offset = 0
+    while True:
+        states = base.repeat(POW_BATCH, 1)
+        states[:, pos] = torch.arange(offset, offset + POW_BATCH,
+                                      dtype=torch.int64, device=device)
+        resp = canonical(permute(GF(states)).v[:, 7])
+        if unbounded:
+            ok = torch.ones_like(resp, dtype=torch.bool)
+        else:
+            ok = ult(resp, to_i64(threshold))
+        hits = torch.nonzero(ok)
+        if hits.numel():
+            return np.uint64(offset + int(hits[0, 0]))
+        offset += POW_BATCH
+        if offset >= (1 << 40):
+            raise RuntimeError("PoW grind failed")
+
+
 def fri_proof_of_work(challenger: Challenger, config: FriConfig,
-                      device) -> np.uint64:
-    """Device grind (reference fri/prover.rs:115-159): the lowest witness w
-    such that the challenge after observing w has >= proof_of_work_bits
-    leading zeros, then replayed through the host challenger."""
+                      device, hasher: str = "poseidon") -> np.uint64:
+    """Grind (reference fri/prover.rs:115-159): the lowest witness w such
+    that the challenge after observing w has >= proof_of_work_bits leading
+    zeros, then replayed through the host challenger.  Poseidon candidates
+    are permuted on ``device``; keccak ones are hashed on the host."""
     min_lz = config.proof_of_work_bits
     threshold = 1 << (64 - min_lz)
     # the duplex state once the pending inputs are written; the witness
@@ -87,24 +148,12 @@ def fri_proof_of_work(challenger: Challenger, config: FriConfig,
     pos = len(challenger.input_buffer)
     if pos:
         inter[:pos] = np.array(challenger.input_buffer, dtype=np.uint64)
-    base = GF.from_u64(inter, device).v.reshape(1, 12)
-    offset = 0
-    witness = None
-    while witness is None:
-        states = base.repeat(POW_BATCH, 1)
-        states[:, pos] = torch.arange(offset, offset + POW_BATCH,
-                                      dtype=torch.int64, device=device)
-        resp = canonical(permute(GF(states)).v[:, 7])
-        if min_lz == 0:
-            ok = torch.ones_like(resp, dtype=torch.bool)
-        else:
-            ok = ult(resp, to_i64(threshold))
-        hits = torch.nonzero(ok)
-        if hits.numel():
-            witness = np.uint64(offset + int(hits[0, 0]))
-        offset += POW_BATCH
-        if offset >= (1 << 40):
-            raise RuntimeError("PoW grind failed")
+    if hasher == "keccak":
+        witness = _keccak_pow_witness(inter, pos, min(threshold, (1 << 64) - 1),
+                                      min_lz == 0)
+    else:
+        witness = _poseidon_pow_witness(inter, pos, threshold, min_lz == 0,
+                                        device)
 
     challenger.observe_element(witness)
     response = challenger.get_challenge()
@@ -140,7 +189,8 @@ def fri_prover_query_rounds(initial_trees: list, trees: list,
 
 def fri_proof(initial_merkle_trees: list, lde_polynomial_coeffs: GF2,
               lde_polynomial_values: GF2, challenger: Challenger,
-              fri_params: FriParams, timing: TimingTree) -> FriProof:
+              fri_params: FriParams, timing: TimingTree,
+              hasher: str = "poseidon") -> FriProof:
     """Top-level FRI proof (reference fri/prover.rs:20)."""
     n = lde_polynomial_values.shape[0]
     if lde_polynomial_coeffs.shape[0] != n:
@@ -148,10 +198,10 @@ def fri_proof(initial_merkle_trees: list, lde_polynomial_coeffs: GF2,
     with timing.scope("commit-phase folds"):
         trees, final_coeffs = fri_committed_trees(
             lde_polynomial_coeffs, lde_polynomial_values, challenger,
-            fri_params)
+            fri_params, hasher)
     with timing.scope("proof-of-work grind"):
         pow_witness = fri_proof_of_work(challenger, fri_params.config,
-                                        lde_polynomial_values.device)
+                                        lde_polynomial_values.device, hasher)
     with timing.scope("query rounds"):
         query_rounds = fri_prover_query_rounds(
             initial_merkle_trees, trees, challenger, n, fri_params)

@@ -33,7 +33,8 @@ def validate_fri_proof_shape(proof, instance, params,
                              digest_width: int = 4) -> None:
     """proof: FriProof; instance: FriInstanceInfo; params: FriParams
     (reference fri/validate_shape.rs:11).  ``digest_width`` is the digest
-    size in field elements (4 for Poseidon)."""
+    shape in array elements: 4 u64 felts for Poseidon caps, 25 bytes for
+    keccak byte-digest trees (hash/keccak_tree.py)."""
     cap_height = params.config.cap_height
     for cap in proof.commit_phase_merkle_caps:
         _ensure(_cap_height(cap) == cap_height,

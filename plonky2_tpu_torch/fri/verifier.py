@@ -3,16 +3,28 @@ fri/challenges.rs:15-66."""
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 
 from ..field import gl64, gl64ext
 from ..field.polynomial import barycentric_weights_np, interpolate_ext_np, eval_poly_ext_np
+from ..hash.keccak_tree import verify_bytes_merkle_proofs_to_cap
 from ..hash.merkle import verify_merkle_proofs_to_cap
 from ..iop.challenger import Challenger
 from ..utils.bits import log2_strict, reverse_bits, reverse_index_bits
 from .config import FriConfig, FriParams
 from .proof import FriChallenges, FriProof
 from .structure import FriInstanceInfo, FriOpenings
+
+
+def _verify_to_cap(leaves, indices, cap, siblings) -> bool:
+    """Dispatch on the digest type: Poseidon 4-felt caps or keccak byte
+    caps."""
+    if np.asarray(cap.data).dtype == np.uint8:
+        return verify_bytes_merkle_proofs_to_cap(leaves, indices, cap,
+                                                 siblings)
+    return verify_merkle_proofs_to_cap(leaves, indices, cap, siblings)
 
 
 def fri_challenges(challenger: Challenger, commit_phase_merkle_caps, final_poly,
@@ -39,12 +51,21 @@ def fri_challenges(challenger: Challenger, commit_phase_merkle_caps, final_poly,
     )
 
 
+@lru_cache(maxsize=16)
+def _alpha_powers(alpha0: int, alpha1: int, k: int) -> np.ndarray:
+    """[1, alpha, ..., alpha^(k-1)] (k, 2), shared by every query round."""
+    return gl64ext.powers(np.array([alpha0, alpha1], np.uint64), k)
+
+
 def _reduce_with_alpha(values: np.ndarray, alpha: np.ndarray) -> np.ndarray:
-    """Horner: sum_j alpha^j values[j] for ext values (k, 2)."""
-    acc = gl64ext.ZERO
-    for v in values[::-1]:
-        acc = gl64ext.add(gl64ext.mul(acc, alpha), v)
-    return acc
+    """sum_j alpha^j values[j] for ext values (k, 2), or base values (k,):
+    the reference's Horner reduction (ReducingFactor), as one vectorised
+    product with the alpha powers and a sum."""
+    values = np.asarray(values, dtype=np.uint64)
+    powers = _alpha_powers(int(alpha[0]), int(alpha[1]), values.shape[0])
+    if values.ndim == 1:
+        return gl64ext.total(gl64ext.scalar_mul(powers, values))
+    return gl64ext.total(gl64ext.mul(values, powers))
 
 
 def precompute_reduced_openings(openings: FriOpenings, alpha: np.ndarray) -> list:
@@ -58,12 +79,10 @@ def fri_combine_initial(instance: FriInstanceInfo, proof, alpha: np.ndarray,
     x = gl64ext.from_base(subgroup_x)
     total = gl64ext.ZERO
     for batch, reduced in zip(instance.batches, reduced_openings):
-        evals = np.stack([
-            gl64ext.from_base(
-                proof.unsalted_eval(p.oracle_index, p.polynomial_index,
-                                    params.hiding and instance.oracles[p.oracle_index].blinding))
-            for p in batch.polynomials
-        ])
+        evals = np.array([
+            proof.unsalted_eval(p.oracle_index, p.polynomial_index,
+                                params.hiding and instance.oracles[p.oracle_index].blinding)
+            for p in batch.polynomials], dtype=np.uint64)
         reduced_evals = _reduce_with_alpha(evals, alpha)
         numerator = gl64ext.sub(reduced_evals, reduced)
         denominator = gl64ext.sub(x, batch.point)
@@ -95,7 +114,9 @@ def verify_fri_proof(instance: FriInstanceInfo, openings: FriOpenings,
     a structurally malformed proof raises ShapeError first
     (fri/validate_shape.py, reference fri/validate_shape.rs:11)."""
     from .validate_shape import validate_fri_proof_shape
-    validate_fri_proof_shape(proof, instance, params)
+    validate_fri_proof_shape(
+        proof, instance, params,
+        digest_width=np.asarray(initial_merkle_caps[0].data).shape[-1])
     n = params.lde_size()
     # PoW
     assert int(challenges.fri_pow_response) < (1 << (64 - params.config.proof_of_work_bits)), \
@@ -120,13 +141,13 @@ def _verify_merkle_openings(challenges: FriChallenges, initial_merkle_caps: list
         leaves = np.stack([r.initial_trees_proof.evals_proofs[t][0] for r in rounds])
         sibs = np.stack([r.initial_trees_proof.evals_proofs[t][1].siblings
                          for r in rounds])
-        assert verify_merkle_proofs_to_cap(leaves, x_index, cap, sibs), \
+        assert _verify_to_cap(leaves, x_index, cap, sibs), \
             "initial Merkle proof failed"
     for i, arity_bits in enumerate(params.reduction_arity_bits):
         x_index = x_index >> arity_bits
         leaves = np.stack([r.steps[i].evals.reshape(-1) for r in rounds])
         sibs = np.stack([r.steps[i].merkle_proof.siblings for r in rounds])
-        assert verify_merkle_proofs_to_cap(
+        assert _verify_to_cap(
             leaves, x_index, proof.commit_phase_merkle_caps[i], sibs), \
             f"commit-phase Merkle proof failed at round {i}"
 

@@ -1,8 +1,10 @@
-"""Fiat-Shamir challenger: duplex Poseidon sponge in overwrite mode.
+"""Fiat-Shamir challenger: duplex sponge in overwrite mode.
 
 Host twin of reference plonky2/src/iop/challenger.rs:16-160.  Challenges
 drive host-side control flow (query indices, PoW checks), so the challenger
-runs on numpy u64; each duplex is one width-12 Poseidon permutation.
+runs on numpy u64; each duplex is one width-12 Poseidon permutation, or
+under the keccak config the keccak hash onion of keccak.rs:64
+(hash/keccak_tree.py), with the same overwrite-mode schedule.
 
 Transcript-order details that matter for byte-compat with the reference:
   * absorption auto-duplexes when the input buffer reaches RATE=8;
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..field import gl64
+from ..hash.keccak_tree import bytes_hash_to_felts, keccak_permutation_np
 from ..hash.poseidon import permute_np
 
 RATE = 8
@@ -24,10 +27,8 @@ WIDTH = 12
 
 def permutation_for(hasher: str):
     """The challenger duplex core of a hasher config (plonk/config.rs:28)."""
-    if hasher != "poseidon":
-        raise NotImplementedError(
-            f"hasher {hasher!r}: the keccak configs are ported with the "
-            "multi-table STARK slice")
+    if hasher == "keccak":
+        return keccak_permutation_np
     return permute_np
 
 
@@ -54,11 +55,18 @@ class Challenger:
         self.observe_elements(np.asarray(x, dtype=np.uint64))
 
     def observe_hash(self, h) -> None:
-        self.observe_elements(np.asarray(h, dtype=np.uint64).reshape(4))
+        h = np.asarray(h)
+        if h.dtype == np.uint8:
+            # byte digest (BytesHash::to_vec, hash_types.rs:181)
+            self.observe_elements(bytes_hash_to_felts(h).reshape(-1))
+        else:
+            self.observe_elements(h.astype(np.uint64).reshape(4))
 
     def observe_cap(self, cap) -> None:
-        data = cap.data if hasattr(cap, "data") else np.asarray(cap)
-        for row in np.asarray(data, dtype=np.uint64).reshape(-1, 4):
+        data = np.asarray(cap.data if hasattr(cap, "data") else cap)
+        if data.dtype != np.uint8:
+            data = data.astype(np.uint64).reshape(-1, 4)
+        for row in data:
             self.observe_hash(row)
 
     # -- squeeze -----------------------------------------------------------
@@ -73,6 +81,14 @@ class Challenger:
     def get_extension_challenge(self) -> np.ndarray:
         """(2,) base-field components of one GF(p^2) challenge."""
         return self.get_n_challenges(2)
+
+    # -- state snapshots (challenger.rs compact) ----------------------------
+    def compact(self) -> np.ndarray:
+        """Absorb pending inputs and return the 12-felt sponge state."""
+        if self.input_buffer:
+            self._duplexing()
+        self.output_buffer.clear()
+        return self.state.copy()
 
     # -- internals -----------------------------------------------------------
     def _duplexing(self) -> None:

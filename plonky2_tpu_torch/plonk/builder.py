@@ -16,6 +16,8 @@ from ..field import gl64
 from ..field.goldilocks import GF
 from ..fri.oracle import PolynomialBatch
 from ..hash.hashing import hash_no_pad_np
+from ..hash.keccak import hash_n_to_bytes
+from ..hash.keccak_tree import bytes_hash_to_felts
 from ..utils.bits import log2_strict
 from ..utils.cuda import resolve_device
 from . import targets as tg
@@ -362,10 +364,6 @@ class CircuitBuilder(BuilderGadgets):
         ``device`` (None means CUDA)."""
         device = resolve_device(device)
         config = self.config
-        if config.hasher != "poseidon":
-            raise NotImplementedError(
-                f"hasher {config.hasher!r}: the keccak configs are ported "
-                "with the multi-table STARK slice")
         rate_bits = config.fri_config.rate_bits
         cap_height = config.fri_config.cap_height
 
@@ -454,15 +452,27 @@ class CircuitBuilder(BuilderGadgets):
 
         constants_sigmas = np.concatenate([constant_vecs, sigma_vecs], axis=0)
         constants_sigmas_commitment = PolynomialBatch.from_values(
-            GF.from_u64(constants_sigmas, device), rate_bits, False, cap_height)
+            GF.from_u64(constants_sigmas, device), rate_bits, False, cap_height,
+            hasher=config.hasher)
 
         cap = constants_sigmas_commitment.merkle_tree.cap
         # circuit digest (circuit_builder.rs:1090): cap || H_pad("") || degree_bits
-        domain_sep_digest = _hash_pad_empty()
-        digest_input = np.concatenate([
-            cap.flatten(), domain_sep_digest,
-            np.array([degree_bits], dtype=np.uint64)])
-        circuit_digest = hash_no_pad_np(digest_input)
+        if config.hasher == "keccak":
+            pad_empty = np.zeros(12, dtype=np.uint64)
+            pad_empty[0] = 1
+            pad_empty[-1] = 1
+            sep = np.frombuffer(hash_n_to_bytes(pad_empty), dtype=np.uint8)
+            digest_input = np.concatenate([
+                cap.flatten(), bytes_hash_to_felts(sep).reshape(-1),
+                np.array([degree_bits], dtype=np.uint64)])
+            circuit_digest = np.frombuffer(hash_n_to_bytes(digest_input),
+                                           dtype=np.uint8)
+        else:
+            domain_sep_digest = _hash_pad_empty()
+            digest_input = np.concatenate([
+                cap.flatten(), domain_sep_digest,
+                np.array([degree_bits], dtype=np.uint64)])
+            circuit_digest = hash_no_pad_np(digest_input)
 
         num_gate_constraints = max(g.num_constraints() for g in gates)
         num_partial_products = -(-config.num_routed_wires // quotient_degree_factor) - 1

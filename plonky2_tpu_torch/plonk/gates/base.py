@@ -17,7 +17,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ...field import gl64ext
-from ...field.goldilocks import GF
+from ...field.goldilocks import GF, scalar
 
 
 class BaseBatchCtx:
@@ -29,13 +29,13 @@ class BaseBatchCtx:
         self.device = device
 
     def constant(self, v: int):
-        return GF.full((), v, self.device)
+        return GF(scalar(v, self.device))
 
     def zero(self):
-        return GF.full((), 0, self.device)
+        return GF(scalar(0, self.device))
 
     def one(self):
-        return GF.full((), 1, self.device)
+        return GF(scalar(1, self.device))
 
 
 class ExtCtx:

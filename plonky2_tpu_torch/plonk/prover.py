@@ -10,8 +10,9 @@ caller named another):
     the reference's sequential row walk (prover.rs:359);
   * quotient: gate constraints evaluated over the whole 8n coset at once
     (replacing the 32-point packed-SIMD batches of prover.rs:574).
-Each phase has a TimingTree scope.  Circuits with lookups are not proved
-yet (``NotImplementedError``).
+Each phase has a TimingTree scope.  Lookup circuits add the lookup
+polynomials (RE and partial SLDC columns, host numpy over the lookup rows)
+to the Zs/partial-products commitment and their checks to the quotient.
 """
 
 from __future__ import annotations
@@ -40,9 +41,6 @@ def prove(prover_data: ProverOnlyCircuitData, common: CommonCircuitData,
           inputs: PartialWitness,
           timing: TimingTree | None = None) -> ProofWithPublicInputs:
     """Prove on the device that holds the circuit's constants and sigmas."""
-    if common.has_lookup():
-        raise NotImplementedError(
-            "circuits with lookups are proved from a later slice")
     device = prover_data.constants_sigmas_commitment.polynomials.device
     timing = timing if timing is not None else TimingTree("prove", device)
     config = common.config
@@ -62,7 +60,8 @@ def prove(prover_data: ProverOnlyCircuitData, common: CommonCircuitData,
     # 2. wires commitment
     with timing.scope("compute wires commitment"):
         wires_commitment = PolynomialBatch.from_values(
-            GF.from_u64(wires_matrix, device), rate_bits, zk, cap_height)
+            GF.from_u64(wires_matrix, device), rate_bits, zk, cap_height,
+            config.hasher)
 
     challenger = Challenger(permutation_for(config.hasher))
     challenger.observe_hash(prover_data.circuit_digest)
@@ -71,14 +70,28 @@ def prove(prover_data: ProverOnlyCircuitData, common: CommonCircuitData,
 
     betas = challenger.get_n_challenges(num_challenges)
     gammas = challenger.get_n_challenges(num_challenges)
+    # lookup deltas: 4 coins per challenge, reusing betas/gammas as the
+    # first 2*nc (reference plonk/get_challenges.rs:54-65)
+    has_lookup = common.has_lookup()
+    if has_lookup:
+        extra = challenger.get_n_challenges(2 * num_challenges)
+        deltas = np.concatenate([betas, gammas, extra])
+    else:
+        deltas = np.zeros(0, dtype=np.uint64)
 
     # 3. partial products + Z polys (prefix products over rows)
     with timing.scope("compute partial products"):
         zs_partial_products = _all_partial_products_and_zs(
             wires_matrix, betas, gammas, prover_data, common, device)
+    if has_lookup:
+        with timing.scope("compute lookup polys"):
+            lookup_polys = _compute_all_lookup_polys(wires_matrix, deltas,
+                                                     prover_data, common)
+        zs_partial_products = GF.concatenate(
+            [zs_partial_products, GF.from_u64(lookup_polys, device)], axis=0)
     with timing.scope("commit to partial products and Z's"):
         pp_commitment = PolynomialBatch.from_values(
-            zs_partial_products, rate_bits, zk, cap_height)
+            zs_partial_products, rate_bits, zk, cap_height, config.hasher)
     challenger.observe_cap(pp_commitment.merkle_tree.cap)
 
     alphas = challenger.get_n_challenges(num_challenges)
@@ -87,10 +100,10 @@ def prove(prover_data: ProverOnlyCircuitData, common: CommonCircuitData,
     with timing.scope("compute quotient polys"):
         quotient_chunks = _compute_quotient_polys(
             common, prover_data, public_inputs_hash, wires_commitment,
-            pp_commitment, betas, gammas, alphas)
+            pp_commitment, betas, gammas, alphas, deltas)
     with timing.scope("commit to quotient polys"):
         quotient_commitment = PolynomialBatch.from_coeffs(
-            quotient_chunks, rate_bits, zk, cap_height)
+            quotient_chunks, rate_bits, zk, cap_height, config.hasher)
     challenger.observe_cap(quotient_commitment.merkle_tree.cap)
 
     # 5. openings at zeta, g*zeta
@@ -165,6 +178,92 @@ def _all_partial_products_and_zs(wires_matrix: np.ndarray, betas, gammas,
     return GF.stack(zs + partials, axis=0)
 
 
+def _compute_all_lookup_polys(wires_matrix: np.ndarray, deltas: np.ndarray,
+                              prover_data, common) -> np.ndarray:
+    """(num_challenges * num_lookup_polys, n) u64: per challenge, RE then the
+    partial SLDC columns (reference plonk/prover.rs:425-545)."""
+    nc = common.config.num_challenges
+    out = [
+        _compute_lookup_polys(wires_matrix,
+                              deltas[4 * i:4 * (i + 1)], prover_data, common)
+        for i in range(nc)
+    ]
+    return np.concatenate(out, axis=0)
+
+
+def _compute_lookup_polys(wires_matrix: np.ndarray, deltas4: np.ndarray,
+                          prover_data, common) -> np.ndarray:
+    from .gates.lookup import LookupGate, LookupTableGate
+
+    n = common.degree()
+    num_lu_slots = LookupGate.slots_from_config(common.config)
+    lu_degree = common.quotient_degree_factor - 1
+    num_partial = -(-num_lu_slots // lu_degree)
+    num_lut_slots = LookupTableGate.slots_from_config(common.config)
+    lut_degree = -(-num_lut_slots // num_partial)
+
+    d_a, d_b, d_alpha, d_delta = (np.uint64(deltas4[i]) for i in range(4))
+    polys = np.zeros((num_partial + 1, n), dtype=np.uint64)
+
+    for (last_lu, last_lut, first_lut) in prover_data.lookup_rows:
+        # --- LUT region: RE + partial Sums, rows descending ---
+        rows = np.arange(last_lut, first_lut + 1)
+        inp = wires_matrix[
+            [LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut_slots)]
+        ][:, rows]  # (S, R)
+        outp = wires_matrix[
+            [LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut_slots)]
+        ][:, rows]
+        mult = wires_matrix[
+            [LookupTableGate.wire_ith_multiplicity(s) for s in range(num_lut_slots)]
+        ][:, rows]
+        looked_combos = gl64.add(inp, gl64.mul(d_a, outp))      # (S, R)
+        lookup_combos = gl64.add(inp, gl64.mul(d_b, outp))
+        inv_alpha_minus = gl64.batch_inv(gl64.sub(d_alpha, looked_combos))
+        weighted = gl64.mul(mult, inv_alpha_minus)              # (S, R)
+
+        # per-row partial sums for each SLDC slot group
+        slot_sums = np.zeros((num_partial, len(rows)), dtype=np.uint64)
+        for p in range(num_partial):
+            for s in range(p * lut_degree,
+                           min((p + 1) * lut_degree, num_lut_slots)):
+                slot_sums[p] = gl64.add(slot_sums[p], weighted[s])
+
+        for row in range(first_lut, last_lut - 1, -1):
+            ri = row - last_lut
+            new_re = polys[0][row + 1] if row + 1 < n else np.uint64(0)
+            for s in range(num_lut_slots):
+                new_re = gl64.add(gl64.mul(new_re, d_delta), lookup_combos[s, ri])
+            polys[0][row] = new_re
+            for p in range(num_partial):
+                prev = polys[num_partial][row + 1] if p == 0 else polys[p][row]
+                polys[p + 1][row] = gl64.add(prev, slot_sums[p, ri])
+
+        # --- LU region: partial LDCs, rows descending ---
+        rows = np.arange(last_lu, last_lut)
+        if len(rows):
+            inp = wires_matrix[
+                [LookupGate.wire_ith_looking_inp(s) for s in range(num_lu_slots)]
+            ][:, rows]
+            outp = wires_matrix[
+                [LookupGate.wire_ith_looking_out(s) for s in range(num_lu_slots)]
+            ][:, rows]
+            looking_combos = gl64.add(inp, gl64.mul(d_a, outp))
+            inv_looking = gl64.batch_inv(gl64.sub(d_alpha, looking_combos))
+            slot_sums = np.zeros((num_partial, len(rows)), dtype=np.uint64)
+            for p in range(num_partial):
+                for s in range(p * lu_degree,
+                               min((p + 1) * lu_degree, num_lu_slots)):
+                    slot_sums[p] = gl64.add(slot_sums[p], inv_looking[s])
+            for row in range(last_lut - 1, last_lu - 1, -1):
+                ri = row - last_lu
+                for p in range(num_partial):
+                    prev = polys[num_partial][row + 1] if p == 0 else polys[p][row]
+                    polys[p + 1][row] = gl64.sub(prev, slot_sums[p, ri])
+
+    return polys
+
+
 def _exclusive_prefix_product(v: GF) -> GF:
     """[1, v0, v0 v1, ...] along the last axis (log-depth scan)."""
     return GF(exclusive_scan(v.v))
@@ -172,7 +271,7 @@ def _exclusive_prefix_product(v: GF) -> GF:
 
 def _compute_quotient_polys(common, prover_data, public_inputs_hash,
                             wires_commitment, pp_commitment, betas, gammas,
-                            alphas) -> GF:
+                            alphas, deltas) -> GF:
     """Evaluate the vanishing polynomial over the whole quotient coset,
     divide by Z_H, and return the quotient chunks (num_ch*deg_factor, n) as
     coefficients."""
@@ -196,6 +295,8 @@ def _compute_quotient_polys(common, prover_data, public_inputs_hash,
 
     nc = common.config.num_challenges
     ppr = common.partial_products_range()
+    lk_start = common.num_zs_partial_products_polys()
+    lk_stop = lk_start + common.num_all_lookup_polys()
     ctx = BaseBatchCtx(device)
     # points: shifted big subgroup, natural order
     big_subgroup = gl64.two_adic_subgroup(common.degree_bits() + qdb)
@@ -216,7 +317,10 @@ def _compute_quotient_polys(common, prover_data, public_inputs_hash,
         next_zs=[pps_next[i] for i in range(nc)],
         partial_products=[pps[i] for i in range(ppr.start, ppr.stop)],
         s_sigmas=[cs[i] for i in common.sigmas_range()],
-        betas=betas, gammas=gammas, alphas=alphas, l_0_x=l_0)
+        betas=betas, gammas=gammas, alphas=alphas, l_0_x=l_0,
+        local_lookup_zs=[pps[i] for i in range(lk_start, lk_stop)],
+        next_lookup_zs=[pps_next[i] for i in range(lk_start, lk_stop)],
+        deltas=deltas)
 
     zh_inv_tiled = GF.from_u64(np.tile(gl64.batch_inv(zh), n), device)
     quotient_values = GF.stack([v * zh_inv_tiled for v in vanishing], axis=0)
@@ -271,5 +375,7 @@ def _opening_set(zeta_np, constants_sigmas_commitment, wires_commitment,
         partial_products=pp_eval[nc:num_zs_pp],
         quotient_polys=at(quotient_commitment.polynomials, zpow),
         lookup_zs=pp_eval[num_zs_pp:],
-        lookup_zs_next=np.zeros((0, 2), dtype=np.uint64),
+        # at g*zeta: the lookup polys too, if any (proof.rs:327)
+        lookup_zs_next=at(pp_commitment.polynomials[num_zs_pp:], zgpow)
+        if common.has_lookup() else np.zeros((0, 2), dtype=np.uint64),
     )

@@ -20,13 +20,18 @@ class StarkConfig:
     ))
     # hasher config (reference GenericConfig: PoseidonGoldilocksConfig /
     # KeccakGoldilocksConfig, plonk/config.rs:124) — selects the Merkle
-    # digest and the challenger duplex for commitments and transcripts.
-    # Only "poseidon" is ported; "keccak" raises in iop.challenger.
+    # digest and the challenger duplex for commitments and transcripts
     hasher: str = "poseidon"
 
     @staticmethod
     def standard_fast_config() -> "StarkConfig":
         return StarkConfig()
+
+    @staticmethod
+    def standard_keccak_config() -> "StarkConfig":
+        """Keccak commitments/transcript: cheaper to verify natively
+        on-chain, not recursion-friendly (plonk/config.rs:72)."""
+        return StarkConfig(hasher="keccak")
 
     def fri_params(self, degree_bits: int):
         return self.fri_config.fri_params(degree_bits, False)

@@ -56,13 +56,16 @@ def num_permutation_batches(stark, config) -> int:
 def compute_permutation_z_polys_gf(stark, config, trace: GF,
                                    challenge_sets: list) -> GF:
     """(num_batches, n) Z columns from the device trace (COLUMNS, n):
-    quotients of the randomized products, one batch inversion, then an
-    exclusive prefix product (permutation.rs:66)."""
+    quotients of the randomized products, then an exclusive prefix product
+    along the rows (permutation.rs:66).  Every batch's denominators share
+    one batch inversion and every Z one scan, so the launch count does not
+    grow with the number of batches."""
     device = trace.device
     batches = get_permutation_batches(
         stark.permutation_pairs(), challenge_sets, config.num_challenges,
         stark.permutation_batch_size())
-    zs = []
+    numers = []
+    denoms = []
     for batch in batches:
         numer = None
         denom = None
@@ -76,8 +79,10 @@ def compute_permutation_z_polys_gf(stark, config, trace: GF,
                 w = w * int(beta)
             numer = rl if numer is None else numer * rl
             denom = rr if denom is None else denom * rr
-        zs.append(_exclusive_prefix_product(numer * batch_inv(denom)))
-    return GF.stack(zs, axis=0)
+        numers.append(numer)
+        denoms.append(denom)
+    quotients = GF.stack(numers, axis=0) * batch_inv(GF.stack(denoms, axis=0))
+    return _exclusive_prefix_product(quotients)
 
 
 def eval_permutation_checks(ctx, stark, config, vars, local_zs, next_zs,

@@ -51,7 +51,7 @@ def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,
 
     with timing.scope("trace commitment (LDE + Merkle)"):
         trace_commitment = PolynomialBatch.from_values(
-            trace_poly_values, rate_bits, False, cap_height)
+            trace_poly_values, rate_bits, False, cap_height, config.hasher)
     challenger = Challenger(permutation)
     challenger.observe_cap(trace_commitment.merkle_tree.cap)
 
@@ -66,7 +66,7 @@ def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,
                 stark, config, trace_poly_values, challenge_sets)
         with timing.scope("permutation Z commitment"):
             perm_zs_commitment = PolynomialBatch.from_values(
-                z_polys, rate_bits, False, cap_height)
+                z_polys, rate_bits, False, cap_height, config.hasher)
         challenger.observe_cap(perm_zs_commitment.merkle_tree.cap)
 
     alphas = challenger.get_n_challenges(config.num_challenges)
@@ -77,7 +77,7 @@ def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,
             config, perm_zs_commitment, challenge_sets)
     with timing.scope("quotient commitment"):
         quotient_commitment = PolynomialBatch.from_coeffs(
-            quotient_chunks, rate_bits, False, cap_height)
+            quotient_chunks, rate_bits, False, cap_height, config.hasher)
     challenger.observe_cap(quotient_commitment.merkle_tree.cap)
 
     zeta_np = challenger.get_extension_challenge()

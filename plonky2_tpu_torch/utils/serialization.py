@@ -2,10 +2,13 @@
 
 Twin of reference plonky2/src/util/serialization/mod.rs: little-endian
 fixed-width integers, field elements as canonical u64 LE, hashes as 4 field
-elements.  PLONK proofs use the reference's wire format (no length prefixes
-but the public-input count: every count follows from CommonCircuitData);
-single-table STARK proofs the repo's own self-describing, length-prefixed
-layout.  Circuit-data checkpoints and keccak digests are not ported yet.
+elements (Poseidon) or their raw bytes (keccak configs, KeccakHash<25>).
+PLONK proofs use the reference's wire format (no length prefixes but the
+public-input count: every count follows from CommonCircuitData); STARK
+proofs (single- and multi-table) the repo's own self-describing,
+length-prefixed layout.  Circuit-data checkpoints are not ported yet
+(ROADMAP Queue 1 item 8): ``circuit_data_to_bytes`` and
+``circuit_data_from_bytes`` raise.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import numpy as np
 
 from ..field import gl64
 from ..fri.proof import FriInitialTreeProof, FriProof, FriQueryRound, FriQueryStep
+from ..hash.keccak import HASH_SIZE
+from ..hash.keccak_tree import BytesMerkleCap
 from ..hash.merkle import MerkleCap, MerkleProof
 from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 
@@ -23,9 +28,13 @@ from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 class Buffer:
     """Byte writer/reader (reference serialization/mod.rs Buffer:2128)."""
 
-    def __init__(self, data: bytes = b""):
+    def __init__(self, data: bytes = b"", digest_bytes: int | None = None):
         self.data = bytearray(data)
         self.pos = 0
+        # digest kind for reads: None = 4-felt Poseidon hashes; an int =
+        # raw byte digests of that size (keccak config, KeccakHash<25>).
+        # Writers dispatch on the array dtype instead (uint8 = bytes).
+        self.digest_bytes = digest_bytes
 
     def bytes(self) -> bytes:
         return bytes(self.data)
@@ -55,7 +64,11 @@ class Buffer:
         self.write_field_vec(np.asarray(vs, dtype=np.uint64).reshape(-1, 2))
 
     def write_hash(self, h):
-        self.write_field_vec(np.asarray(h, dtype=np.uint64).reshape(4))
+        h = np.asarray(h)
+        if h.dtype == np.uint8:   # byte digest (keccak.rs BytesHash)
+            self.data += h.reshape(-1).tobytes()
+            return
+        self.write_field_vec(h.astype(np.uint64).reshape(4))
 
     def write_cap(self, cap: MerkleCap):
         """Cap hashes back to back, no length prefix (mod.rs:1367): the
@@ -65,7 +78,9 @@ class Buffer:
 
     def write_hash_vec(self, hashes):
         """usize-length-prefixed hash list (mod.rs:1352)."""
-        hashes = np.asarray(hashes, dtype=np.uint64).reshape(-1, 4)
+        hashes = np.asarray(hashes)
+        if hashes.dtype != np.uint8:
+            hashes = hashes.astype(np.uint64).reshape(-1, 4)
         self.write_usize(len(hashes))
         for h in hashes:
             self.write_hash(h)
@@ -99,20 +114,30 @@ class Buffer:
     def read_field_vec(self, n: int) -> np.ndarray:
         return np.frombuffer(self._take(8 * n), dtype="<u8").astype(np.uint64)
 
+    def read_ext(self) -> np.ndarray:
+        return self.read_field_vec(2)
+
     def read_ext_vec(self, n: int) -> np.ndarray:
         return self.read_field_vec(2 * n).reshape(n, 2)
 
-    def read_cap(self, cap_height: int) -> MerkleCap:
-        n = 1 << cap_height
-        return MerkleCap(self.read_field_vec(4 * n).reshape(n, 4))
-
-    def read_hash_vec(self) -> np.ndarray:
-        n = self.read_usize()
+    def _read_hashes(self, n: int) -> np.ndarray:
+        """n digests: (n, 4) u64 felts, or (n, digest_bytes) uint8."""
+        db = self.digest_bytes
+        if db:
+            return np.frombuffer(self._take(n * db), np.uint8).reshape(n, db)
         return self.read_field_vec(4 * n).reshape(n, 4)
 
+    def make_cap(self, data: np.ndarray):
+        return BytesMerkleCap(data) if self.digest_bytes else MerkleCap(data)
+
+    def read_cap(self, cap_height: int):
+        return self.make_cap(self._read_hashes(1 << cap_height))
+
+    def read_hash_vec(self) -> np.ndarray:
+        return self._read_hashes(self.read_usize())
+
     def read_merkle_proof(self) -> MerkleProof:
-        n = self.read_u8()
-        return MerkleProof(self.read_field_vec(4 * n).reshape(n, 4))
+        return MerkleProof(self._read_hashes(self.read_u8()))
 
 
 def write_fri_proof_sd(buf: Buffer, fp: FriProof):
@@ -140,7 +165,7 @@ def write_fri_proof_sd(buf: Buffer, fp: FriProof):
 
 
 def read_fri_proof_sd(buf: Buffer) -> FriProof:
-    caps = [MerkleCap(buf.read_hash_vec()) for _ in range(buf.read_usize())]
+    caps = [buf.make_cap(buf.read_hash_vec()) for _ in range(buf.read_usize())]
     rounds = []
     for _ in range(buf.read_usize()):
         evals_proofs = []
@@ -302,12 +327,28 @@ def proof_with_pis_to_bytes(pwp: ProofWithPublicInputs) -> bytes:
     return buf.bytes()
 
 
+def digest_bytes_for(hasher: str) -> int | None:
+    """Byte-digest size for a hasher config, None for felt digests."""
+    return HASH_SIZE if hasher == "keccak" else None
+
+
 def proof_with_pis_from_bytes(data: bytes, common) -> ProofWithPublicInputs:
-    if common.config.hasher != "poseidon":
-        raise NotImplementedError(
-            f"hasher {common.config.hasher!r}: keccak digests are ported with "
-            "the multi-table STARK slice")
-    buf = Buffer(data)
+    buf = Buffer(data, digest_bytes_for(common.config.hasher))
     proof = read_proof(buf, common)
     n = buf.read_usize()
     return ProofWithPublicInputs(proof, buf.read_field_vec(n))
+
+
+# -- circuit-data checkpoints --------------------------------------------------
+
+def circuit_data_to_bytes(data) -> bytes:
+    """Not ported yet: circuit-data checkpoints are ROADMAP Queue 1 item 8,
+    which follows the recursion slice (item 10)."""
+    raise NotImplementedError(
+        "circuit-data checkpoints are not ported yet (ROADMAP Queue 1 item 8)")
+
+
+def circuit_data_from_bytes(data: bytes, device=None):
+    """Not ported yet (ROADMAP Queue 1 item 8); see circuit_data_to_bytes."""
+    raise NotImplementedError(
+        "circuit-data checkpoints are not ported yet (ROADMAP Queue 1 item 8)")

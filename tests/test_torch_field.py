@@ -158,3 +158,52 @@ def test_convert_carries_jax_values_and_configs(rng):
     cfg = convert.stark_config_from_jax(JStarkConfig.standard_fast_config())
     assert cfg == StarkConfig.standard_fast_config()
     assert cfg.fri_params(10) == StarkConfig().fri_params(10)
+
+
+def _horner_ext(values, alpha):
+    """sum_j alpha^j values[j], one element at a time (the reference's
+    ReducingFactor loop), as the loop reference for the vectorised form."""
+    acc = gl64ext.ZERO
+    for v in values[::-1]:
+        acc = gl64ext.add(gl64ext.mul(acc, alpha), v)
+    return acc
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 7, 64, 139])
+def test_verifier_reductions_match_their_loops(rng, k):
+    """fri/verifier.py reduces opened values with vectorised alpha powers
+    and sums; the results equal the element-by-element loops, for base and
+    extension values, exactly."""
+    from plonky2_tpu_torch.fri.verifier import _reduce_with_alpha
+    alpha = rng.integers(0, P, size=2, dtype=np.uint64)
+    ext = rng.integers(0, P, size=(k, 2), dtype=np.uint64)
+    base = rng.integers(0, P, size=k, dtype=np.uint64)
+    np.testing.assert_array_equal(
+        gl64ext.to_canonical(_reduce_with_alpha(ext, alpha)),
+        gl64ext.to_canonical(_horner_ext(ext, alpha)))
+    np.testing.assert_array_equal(
+        gl64ext.to_canonical(_reduce_with_alpha(base, alpha)),
+        gl64ext.to_canonical(_horner_ext(gl64ext.from_base(base), alpha)))
+    loop = [gl64ext.ONE]
+    for _ in range(k - 1):
+        loop.append(gl64ext.mul(loop[-1], alpha))
+    np.testing.assert_array_equal(
+        gl64ext.to_canonical(gl64ext.powers(alpha, k)),
+        gl64ext.to_canonical(np.stack(loop)[:k].reshape(k, 2)))
+
+
+def test_interpolation_matches_the_jax_loop(rng):
+    """The vectorised barycentric interpolation equals the JAX package's
+    per-point loop (an arity-16 coset, as the FRI verifier's folds use)."""
+    from plonky2_tpu.field.polynomial import interpolate_ext_np as jinterp
+    from plonky2_tpu_torch.field.polynomial import (barycentric_weights_np,
+                                                    interpolate_ext_np)
+    xs = gl64.to_canonical(gl64.mul(
+        np.uint64(7), gl64.powers(gl64.primitive_root_of_unity(4), 16)))
+    ys = rng.integers(0, P, size=(16, 2), dtype=np.uint64)
+    w = barycentric_weights_np(xs)
+    for x in (rng.integers(0, P, size=2, dtype=np.uint64),
+              gl64ext.from_base(xs[5])):   # a node: returns ys[5]
+        np.testing.assert_array_equal(
+            gl64ext.to_canonical(interpolate_ext_np(xs, ys, w, x)),
+            gl64ext.to_canonical(jinterp(xs, ys, w, x)))

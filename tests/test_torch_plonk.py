@@ -2,12 +2,13 @@
 on the CPU: the same circuit digest, identical proof bytes (the port's own
 circuit and one carried across with convert.circuit_data_from_jax), the
 port's verifier accepting and rejecting, and a zero-knowledge proof that
-verifies.
+verifies; lookup circuits and the keccak hasher config too.
 
 Every comparison runs the JAX package live on the same inputs: one
-module-scoped prove of the m = 2 matmul circuit and one of each example
-circuit.  The examples use tests/test_examples.py's fast_config and
-circuits, so the persistent XLA cache serves both files.
+module-scoped prove of the m = 2 matmul circuit, one of each example
+circuit, of tests/test_lookup.py's two-LUT circuit and of
+tests/test_keccak_config.py's circuit.  They use those files' fast configs
+and circuits, so the persistent XLA cache serves both files.
 """
 
 import copy
@@ -20,6 +21,7 @@ from plonky2_tpu.fri.config import FriConfig as JFriConfig
 from plonky2_tpu.fri.config import FriReductionStrategy as JFriReductionStrategy
 from plonky2_tpu.models import examples as jexamples
 from plonky2_tpu.models import matrix_mul as jmm
+from plonky2_tpu.plonk.builder import CircuitBuilder as JCircuitBuilder
 from plonky2_tpu.plonk.config import CircuitConfig as JCircuitConfig
 from plonky2_tpu.plonk.witness import PartialWitness as JPartialWitness
 from plonky2_tpu.utils.serialization import proof_with_pis_to_bytes as jto_bytes
@@ -168,6 +170,8 @@ def test_zk_proof_verifies():
 
 
 def test_lookup_circuits_are_not_proved_yet():
+    """Lookup circuits are proved now: a one-LUT circuit proves on the CPU
+    and verifies, with the LUT's output as its public input."""
     b = CircuitBuilder(port_fast_config())
     lut = b.add_lookup_table_from_fn(lambda x: (x * x) & 0xFFFF, range(4))
     x = b.add_virtual_target()
@@ -175,8 +179,125 @@ def test_lookup_circuits_are_not_proved_yet():
     data = b.build("cpu")
     pw = PartialWitness()
     pw.set_target(x, 3)
-    with pytest.raises(NotImplementedError, match="lookups"):
-        data.prove(pw)
+    proof = data.prove(pw)
+    assert list(map(int, proof.public_inputs)) == [9]
+    assert len(proof.proof.openings.lookup_zs_next) == \
+        data.common.num_all_lookup_polys() > 0
+    data.verify(proof)
+
+
+TIP5_IN = list(range(8))
+TIP5_OUT = [y & 0xFFFF for y in (0xDEAD, 0xBEEF, 17, 255, 0, 3, 7, 8)]
+
+
+def two_luts_circuit(builder, config, device=None):
+    """tests/test_lookup.py's test_two_luts_and_fn_table circuit."""
+    b = builder(config)
+    lut_a = b.add_lookup_table_from_table(TIP5_IN, TIP5_OUT)
+    lut_b = b.add_lookup_table_from_fn(lambda x: (x * x + 1) & 0xFFFF,
+                                       list(range(16)))
+    x = b.add_virtual_target()
+    y = b.add_lookup_from_index(x, lut_a)
+    s = b.add_lookup_from_index(b.constant(7), lut_b)
+    b.register_public_inputs([x, y, s, b.add(y, s)])
+    return (b.build() if device is None else b.build(device)), x
+
+
+@pytest.fixture(scope="module")
+def jax_two_luts_bytes():
+    jdata, jx = two_luts_circuit(JCircuitBuilder, jax_fast_config())
+    jpw = JPartialWitness()
+    jpw.set_target(jx, 6)
+    return jto_bytes(prove_seeded(jdata, jpw))
+
+
+def test_lookup_proof_matches_jax(jax_two_luts_bytes):
+    data, x = two_luts_circuit(CircuitBuilder, port_fast_config(), "cpu")
+    pw = PartialWitness()
+    pw.set_target(x, 6)
+    proof = prove_seeded(data, pw)
+    assert list(map(int, proof.public_inputs)) == [6, 7, 50, 57]
+    got = proof_with_pis_to_bytes(proof)
+    assert got == jax_two_luts_bytes
+    back = proof_with_pis_from_bytes(got, data.common)
+    data.verify(back)
+
+
+def test_lookup_rejects_wrong_claim():
+    """tests/test_lookup.py's case: a lookup output pinned to a value the
+    LUT does not hold cannot give a proof that verifies."""
+    b = CircuitBuilder(port_fast_config())
+    lut = b.add_lookup_table_from_table(TIP5_IN, TIP5_OUT)
+    inp = b.add_virtual_target()
+    out = b.add_lookup_from_index(inp, lut)
+    b.connect(out, b.constant(12345))   # contradicts LUT[3] = 255
+    b.register_public_inputs([inp, out])
+    data = b.build("cpu")
+    pw = PartialWitness()
+    pw.set_target(inp, 3)
+    with pytest.raises(AssertionError):
+        data.verify(data.prove(pw))
+
+
+def keccak_circuit(builder, config, device=None):
+    """tests/test_keccak_config.py's circuit: out = x*x + (y + 42)."""
+    b = builder(config)
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    b.register_public_inputs([x, y, b.add(b.mul(x, x), b.add_const(y, 42))])
+    return (b.build() if device is None else b.build(device)), x, y
+
+
+def keccak_config(circuit_config, fri_config, strategy):
+    """tests/test_keccak_config.py's _config(), from either package."""
+    return circuit_config(hasher="keccak", fri_config=fri_config(
+        rate_bits=3, cap_height=4, proof_of_work_bits=8,
+        reduction_strategy=strategy.constant_arity(4, 5), num_query_rounds=4))
+
+
+@pytest.fixture(scope="module")
+def jax_keccak():
+    """(JAX circuit data, x, y, proof bytes) of the keccak-config circuit."""
+    jdata, jx, jy = keccak_circuit(
+        JCircuitBuilder,
+        keccak_config(JCircuitConfig, JFriConfig, JFriReductionStrategy))
+    jpw = JPartialWitness()
+    jpw.set_target(jx, 3)
+    jpw.set_target(jy, 5)
+    return jdata, jx, jy, jto_bytes(prove_seeded(jdata, jpw))
+
+
+def test_keccak_config_proof_matches_jax(jax_keccak):
+    jdata, _, _, want = jax_keccak
+    config = keccak_config(CircuitConfig, FriConfig, FriReductionStrategy)
+    data, x, y = keccak_circuit(CircuitBuilder, config, "cpu")
+    assert data.verifier_only.circuit_digest.dtype == np.uint8
+    np.testing.assert_array_equal(data.verifier_only.circuit_digest,
+                                  jdata.verifier_only.circuit_digest)
+    pw = PartialWitness()
+    pw.set_target(x, 3)
+    pw.set_target(y, 5)
+    proof = prove_seeded(data, pw)
+    assert proof.proof.wires_cap.data.dtype == np.uint8
+    got = proof_with_pis_to_bytes(proof)
+    assert got == want
+    back = proof_with_pis_from_bytes(got, data.common)
+    assert proof_with_pis_to_bytes(back) == got
+    data.verify(back)
+    tampered = copy.copy(proof)
+    tampered.public_inputs = proof.public_inputs.copy()
+    tampered.public_inputs[2] = (int(tampered.public_inputs[2]) + 1) % P
+    with pytest.raises(AssertionError):
+        data.verify(tampered)
+
+
+def test_keccak_circuit_data_from_jax_proves_identically(jax_keccak):
+    jdata, jx, jy, want = jax_keccak
+    data = convert.circuit_data_from_jax(jdata, "cpu")
+    pw = PartialWitness()
+    pw.set_target(jx, 3)
+    pw.set_target(jy, 5)
+    assert proof_with_pis_to_bytes(prove_seeded(data, pw)) == want
 
 
 def test_build_defaults_to_cuda(monkeypatch):

@@ -38,6 +38,15 @@ PLONK_SLICE_MODULES = [
     "plonk.gates.lookup", "plonk.gates.misc", "plonk.gates.poseidon_gate",
     "plonk.gates.simple", "models.examples", "models.matrix_mul",
     "utils.context_tree", "utils.serialization", "field.ntt", "convert"]
+# the modules of the multi-table STARK / zkEVM / keccak slice
+ZKEVM_SLICE_MODULES = [
+    "hash.keccak", "hash.keccak_tree", "native", "field.secp256k1",
+    "stark.ctl", "stark.multi", "stark.testing", "models.multi_table",
+    "zkevm", "zkevm.arithmetic", "zkevm.bn254", "zkevm.cpu",
+    "zkevm.generation", "zkevm.keccak", "zkevm.keccak_sponge", "zkevm.logic",
+    "zkevm.lookup", "zkevm.memory", "zkevm.mpt", "zkevm.opcodes",
+    "zkevm.program", "zkevm.rlp", "zkevm.serialization", "zkevm.transfer",
+    "zkevm.kernel", "zkevm.kernel.aggregator", "zkevm.kernel.assembler"]
 
 
 def fib_pis(stark, x0, x1):
@@ -115,7 +124,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m == 'plonky2_tpu' "
         "or m.startswith('plonky2_tpu.')]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {PLONK_SLICE_MODULES!r} "
+        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES!r} "
         "if 'plonky2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules "
