@@ -30,31 +30,50 @@ Phases, one line each:
      standard_recursion_zk_config verifies;
   8. small multi-table proofs (models/multi_table.py: the three-table CTL
      demo and Logic + Memory + a bus table) under standard_fast_config and
-     under the keccak config, each proved on cuda and on cpu with equal
-     multi_proof_to_bytes, verified, and rejected with a tampered CTL Z;
+     under the keccak config, each proved on cuda (and, under the first,
+     on cpu with equal multi_proof_to_bytes), verified, and rejected with
+     a tampered CTL Z;
   9. a two-LUT lookup plonk circuit and an m = 2 matmul circuit under
      standard_keccak_config, each proved on cuda and on cpu with equal
      proof bytes and verified;
- 10. the STARK path at full size: a 2^20-row Fibonacci STARK under
+ 10. the recursion slice's small cases on cuda, each proved and verified:
+     a 4-query wrap of the reference tests' x^2 + y + 42 proof (also on
+     cpu, equal bytes), a two-step cyclic IVC, the wrap of a 2^5-row
+     Fibonacci STARK proof, the staged per-table wrappers and root of the
+     three-table CTL demo, the aggregation root, a leaf aggregation and a
+     first block of a two-table demo through a to_bytes /
+     from_bytes(device="cuda") checkpoint, and a circuit-data checkpoint
+     round trip;
+ 11. the STARK path at full size: a 2^20-row Fibonacci STARK under
      StarkConfig.standard_fast_config() proved twice on cuda and verified,
      with each kernel's calls and kernel launches on that path;
- 11. the same prove once more under torch.profiler: device busy time, the
+ 12. the same prove once more under torch.profiler: device busy time, the
      device's idle share of the wall time, and device time by kernel;
- 12. the plonk path at full size: the m = 64 matrix-multiplication circuit
+ 13. the plonk path at full size: the m = 64 matrix-multiplication circuit
      (degree 2^15, standard_recursion_config) built once on cuda, proved
      twice (cold, warm) and verified, with per-phase times, peak memory and
      each kernel's calls and launches on that path;
- 13. the warm plonk prove once more under torch.profiler;
- 14. the zkEVM path: one transfer block (zkevm.transfer.prove_transfer,
-     seven tables, arith_limb_bits=16, standard_fast_config) proved twice
-     (cold, warm) with the simulation and trace-generation seconds, the
-     table shapes, per-table phases and peak device memory, each kernel's
-     calls and launches, the keccak backend, and verify_transfer_proof
-     (ROM binding included) accepting it; in the warm prove each ported
-     kernel's device time (CUDA events around its calls) and the device's
-     busy share from nvidia-smi's utilization samples (the prove's
-     millions of launches are too many for torch.profiler's parsing);
- 15. a JSON line with every kernel's launches and device ms per prove on
+ 14. the warm plonk prove once more under torch.profiler;
+ 15. the recursion path: models/bench_recursion.py at
+     standard_recursion_config (28 queries, 16 PoW bits): a 2^12-gate inner
+     proof, its level-0 wrapper and the level-1 wrapper of that, each
+     wrapper built on cuda, proved cold and warm and verified, with the
+     gates placed by type, per-phase times, peak memory and each kernel's
+     calls and launches; proof sizes and degrees held to the JAX package's
+     (126,960 and 127,440 bytes, degrees 4,096 and 8,192), the inner
+     public input out of both wrappers, and a wrapper of a tampered inner
+     proof rejected;
+ 16. the warm level-0 wrapper prove once more under torch.profiler;
+ 17. the zkEVM path: one transfer block (zkevm.transfer.prove_transfer,
+     seven tables, arith_limb_bits=16, standard_fast_config) proved once
+     with the simulation and trace-generation seconds, the table shapes,
+     per-table phases and peak device memory, each kernel's calls and
+     launches, the keccak backend, and verify_transfer_proof (ROM binding
+     included) accepting it; in the prove each ported kernel's device time
+     (CUDA events around its calls) and the device's busy share from
+     nvidia-smi's utilization samples (the prove's millions of launches
+     are too many for torch.profiler's parsing);
+ 18. a JSON line with every kernel's launches and device ms per prove on
      each path, times and bound.
 A kernel that a path should run and that launched no time there fails the
 run.  The last line is {"ok": true, "device": {...}}.  Any failure exits
@@ -64,7 +83,6 @@ warm-up.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import statistics
@@ -489,9 +507,12 @@ def phase_small_plonk() -> None:
 def phase_small_multi(devices=("cuda", "cpu")) -> None:
     """The three-table CTL demo and the Logic + Memory + bus demo
     (models/multi_table.py) under the Poseidon and the keccak configs:
-    proved on cuda and on cpu with equal multi_proof_to_bytes, accepted by
-    the verifier, and rejected once the looked table's final CTL product
-    is tampered with."""
+    proved on cuda, and under the Poseidon config also on cpu with equal
+    multi_proof_to_bytes (the keccak config's cpu twins were cut to keep
+    the run inside its time; tests/test_torch_multi.py holds both hashers'
+    bytes against the JAX package on the CPU), accepted by the verifier,
+    and rejected once the looked table's final CTL product is tampered
+    with."""
     from plonky2_tpu_torch.field import gl64
     from plonky2_tpu_torch.models.multi_table import ctl_demo, zkevm_bus_demo
     from plonky2_tpu_torch.stark.config import StarkConfig
@@ -504,12 +525,13 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
         for hasher in ("poseidon", "keccak"):
             starks, ctls, traces = demo()
             config = StarkConfig(hasher=hasher)
+            twins = devices if hasher == "poseidon" else devices[:1]
             proofs = [prove_multi_table(starks, ctls, config, traces,
-                                        device=d) for d in devices]
+                                        device=d) for d in twins]
             data = [multi_proof_to_bytes(p, hasher) for p in proofs]
             if data[0] != data[-1]:
                 fail(f"{name} proof bytes under {hasher} differ between "
-                     f"{devices[0]} and {devices[-1]}")
+                     f"{twins[0]} and {twins[-1]}")
             proof = proofs[0]
             verify_multi_table(starks, ctls, proof, config)
             last = proof.stark_proofs[0].openings.ctl_zs_last
@@ -521,7 +543,7 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
             else:
                 fail(f"{name}: a tampered CTL Z was accepted under {hasher}")
             sizes[f"{name}/{hasher}"] = len(data[0])
-    line("small_multi", proof_bytes=sizes, cuda_equals_cpu=True,
+    line("small_multi", proof_bytes=sizes, cuda_equals_cpu="poseidon",
          verified=True, tampered_ctl_z_rejected=True)
 
 
@@ -792,11 +814,12 @@ class ProveWindow:
 
 def phase_zkevm_transfer(kernels: list, required: list):
     """The zkEVM path: one transfer block through zkevm.transfer.prove_transfer
-    at arith_limb_bits=16 under standard_fast_config, twice (cold, warm),
-    each with every kernel count set to 0 just before it and read just
-    after, the warm one inside a ProveWindow; the seven table shapes
+    at arith_limb_bits=16 under standard_fast_config, once (earlier paths
+    have built and run every kernel; a second, warm prove was cut to keep
+    the run inside its time), with every kernel count set to 0 just before
+    it and read just after, inside a ProveWindow; the seven table shapes
     checked; verify_transfer_proof (ROM binding included) must accept.
-    Returns the warm run's launches and its kernels' device ms."""
+    Returns the run's launches and its kernels' device ms."""
     from plonky2_tpu_torch import native
     from plonky2_tpu_torch.stark.config import StarkConfig
     from plonky2_tpu_torch.utils.timing import TimingTree
@@ -804,38 +827,25 @@ def phase_zkevm_transfer(kernels: list, required: list):
                                                   verify_transfer_proof)
     inputs = transfer_inputs()
     config = StarkConfig.standard_fast_config()
-    runs = []
     window = ProveWindow(kernels)
-    for run in ("cold", "warm"):
-        for k in kernels:
-            k.reset()
-        torch.cuda.reset_peak_memory_stats()
-        timing = TimingTree("prove_transfer", "cuda")
-        t0 = time.perf_counter()
-        with TablePeaks() as peaks, \
-                (window if run == "warm" else contextlib.nullcontext()):
-            proof, starks, ctls, pv = prove_transfer(inputs, config,
-                                                     timing=timing)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        timing.close()
-        generate, prove = timing.children
-        runs.append({
-            "seconds": secs,
-            "simulate_and_trace_seconds": generate.duration(),
-            "prove_seconds": prove.duration(),
-            "launches": {k.symbol: k.launches for k in kernels},
-            "calls": {k.symbol: k.calls for k in kernels},
-            "timing": prove.as_dict(),
-            "peak_memory_by_table": peaks.peaks,
-            "max_memory_allocated": max(peaks.peaks.values())})
+    for k in kernels:
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    timing = TimingTree("prove_transfer", "cuda")
+    t0 = time.perf_counter()
+    with TablePeaks() as peaks, window:
+        proof, starks, ctls, pv = prove_transfer(inputs, config, timing=timing)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    timing.close()
+    generate, prove = timing.children
+    launches = {k.symbol: k.launches for k in kernels}
     kernel_ms = window.kernel_ms()
     if not window.samples:
         fail("nvidia-smi gave no utilization samples during the prove")
     utilization = statistics.mean(window.samples) / 100
-    warm = runs[1]
     for k in required:
-        if warm["launches"][k.symbol] == 0:
+        if launches[k.symbol] == 0:
             fail(f"kernel {k.symbol} was not launched on the zkevm_transfer "
                  "path")
     shapes = {type(s).__name__: (s.COLUMNS, 1 << p.degree_bits)
@@ -847,21 +857,348 @@ def phase_zkevm_transfer(kernels: list, required: list):
     verify_s = time.perf_counter() - t0
     line("zkevm_transfer", arith_limb_bits=16, tables=shapes,
          trace_bytes=sum(8 * c * n for c, n in shapes.values()),
-         simulate_and_trace_seconds=[r["simulate_and_trace_seconds"]
-                                     for r in runs],
-         prove_seconds_cold=runs[0]["prove_seconds"],
-         prove_seconds_warm=warm["prove_seconds"],
-         prove_transfer_seconds=[r["seconds"] for r in runs],
+         simulate_and_trace_seconds=generate.duration(),
+         prove_seconds=prove.duration(), prove_transfer_seconds=secs,
          verify_seconds=verify_s, verified=True, rom_binding_checked=True,
-         keccak_backend=native.backend(), calls=warm["calls"],
-         launches=warm["launches"], kernel_device_ms=kernel_ms,
-         utilization_samples=len(window.samples),
+         keccak_backend=native.backend(),
+         calls={k.symbol: k.calls for k in kernels}, launches=launches,
+         kernel_device_ms=kernel_ms, utilization_samples=len(window.samples),
          device_busy_share_smi=utilization,
          device_idle_share_smi=1 - utilization,
-         max_memory_allocated=warm["max_memory_allocated"],
-         peak_memory_by_table=warm["peak_memory_by_table"],
-         timing=warm["timing"])
-    return warm["launches"], kernel_ms
+         max_memory_allocated=max(peaks.peaks.values()),
+         peak_memory_by_table=peaks.peaks, timing=prove.as_dict())
+    return launches, kernel_ms
+
+
+# The JAX package's proof sizes at standard_recursion_config for
+# bench_recursion's 2^12-gate inner proof and its level-0 wrapper, and each
+# wrapper level's degree: the level-1 wrapper places 4,137 gates (the JAX
+# package's gadgets place the same, tests/test_torch_recursion.py), so it
+# pads to 2^13.  None of these depends on the device.
+RECURSION_INNER_BYTES = 126_960
+RECURSION_WRAPPER_BYTES = 127_440
+RECURSION_WRAPPER_DEGREES = (1 << 12, 1 << 13)
+
+
+def phase_recursion(kernels: list, required: list):
+    """The recursion path: bench_recursion at standard_recursion_config.
+    The 2^12-gate inner circuit is built, proved and verified on cuda; then
+    the level-0 wrapper (verifying the inner proof) and the level-1 wrapper
+    (verifying the level-0 proof) are each built on cuda, proved cold and
+    warm through run_path and verified.  The proof sizes and degrees are
+    checked against the JAX package's, the inner public input must come out
+    of both wrappers, and a level-0 witness made from a tampered inner proof
+    must give a proof the verifier rejects.  Returns the level-0 warm
+    prove's launches and a warm level-0 prove."""
+    import collections
+    from plonky2_tpu_torch.models.bench_recursion import (add_wrapper_gates,
+                                                          dummy_inner,
+                                                          recursion_config,
+                                                          wrapper_witness)
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
+    config = recursion_config()
+    t0 = time.perf_counter()
+    data, pw = dummy_inner(config, 12, device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = data.prove(pw)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    data.verify(proof)
+    size = len(proof_with_pis_to_bytes(proof))
+    if size != RECURSION_INNER_BYTES:
+        fail(f"inner proof is {size} bytes, not {RECURSION_INNER_BYTES}")
+    if [int(v) for v in proof.public_inputs] != [42]:
+        fail("the inner proof's public input is not 42")
+    line("recursion_inner", degree=data.common.degree(), build_seconds=build_s,
+         prove_seconds=prove_s, proof_bytes=size, verified=True)
+    inner = (data, proof)
+    level0 = None
+    for level in (0, 1):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = CircuitBuilder(config)
+        pt, vdt = add_wrapper_gates(b, data.common)
+        gates = collections.Counter(type(g).__name__
+                                    for g, _ in b.gate_instances)
+        outer = b.build("cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_mem = torch.cuda.max_memory_allocated()
+        if outer.common.degree() != RECURSION_WRAPPER_DEGREES[level]:
+            fail(f"level-{level} wrapper has degree {outer.common.degree()}")
+        wpw = wrapper_witness(pt, vdt, proof, data.verifier_only)
+        res = run_path(f"recursion level {level}",
+                       lambda timing: outer.prove(wpw, timing), kernels,
+                       required)
+        t0 = time.perf_counter()
+        outer.verify(res["proof"])
+        verify_s = time.perf_counter() - t0
+        size = len(proof_with_pis_to_bytes(res["proof"]))
+        if level == 0 and size != RECURSION_WRAPPER_BYTES:
+            fail(f"level-0 wrapper proof is {size} bytes, not "
+                 f"{RECURSION_WRAPPER_BYTES}")
+        if [int(v) for v in res["proof"].public_inputs] != [42]:
+            fail(f"the level-{level} wrapper does not expose the inner "
+                 "public input")
+        warm = res["warm"]
+        line("recursion_wrap", level=level, degree=outer.common.degree(),
+             gates_placed=dict(gates.most_common()),
+             gates=[g.id() for g in outer.common.gates],
+             build_seconds=build_s, build_max_memory_allocated=build_mem,
+             proof_bytes=size, prove_seconds_cold=res["cold"]["seconds"],
+             prove_seconds_warm=warm["seconds"], verify_seconds=verify_s,
+             calls=warm["calls"], launches=warm["launches"],
+             max_memory_allocated=warm["max_memory_allocated"],
+             timing=warm["timing"], verified=True)
+        if level == 0:
+            level0 = (outer, pt, vdt, wpw, warm["launches"])
+        data, proof = outer, res["proof"]
+
+    outer, pt, vdt, wpw, launches = level0
+    inner_data, inner_proof = inner
+    tampered = type(inner_proof)(
+        inner_proof.proof, np.array(inner_proof.public_inputs, np.uint64))
+    tampered.public_inputs[0] += np.uint64(1)
+    try:
+        outer.verify(outer.prove(wrapper_witness(
+            pt, vdt, tampered, inner_data.verifier_only)))
+    except AssertionError:
+        pass
+    else:
+        fail("a wrapper of a tampered inner proof was accepted")
+    line("recursion_tampered", tampered_inner_rejected=True)
+    return launches, lambda: outer.prove(wpw)
+
+
+def phase_small_recursion() -> None:
+    """The recursion slice's small cases on cuda, each proved and verified:
+    the 4-query wrap (the reference tests' x^2 + y + 42 inner circuit),
+    also on cpu with equal proof bytes; a two-step cyclic IVC; the wrap of a
+    2^5-row Fibonacci STARK proof; the staged per-table wrappers and root of
+    the three-table CTL demo; the aggregation root, a leaf aggregation and
+    a first block of the two-table demo through a to_bytes /
+    from_bytes(device="cuda") checkpoint; a circuit-data checkpoint round
+    trip."""
+    from plonky2_tpu_torch.models.bench_recursion import (build_wrapper,
+                                                          recursion_config,
+                                                          wrapper_witness)
+    from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
+    config = recursion_config(4, 8)
+    t0 = time.perf_counter()
+    out = {}
+    for device in ("cuda", "cpu"):
+        inner, pw = small_inner(config, device)
+        inner.prover_only.schedule.rng_seed = 1
+        inner_proof = inner.prove(pw)
+        outer, pt, vdt = build_wrapper(config, inner.common, device)
+        outer.prover_only.schedule.rng_seed = 1
+        out[device] = outer.prove(wrapper_witness(pt, vdt, inner_proof,
+                                                  inner.verifier_only))
+        if device == "cuda":
+            outer.verify(out[device])
+    wrap = proof_with_pis_to_bytes(out["cuda"])
+    if wrap != proof_with_pis_to_bytes(out["cpu"]):
+        fail("4-query wrapper proof bytes differ between cuda and cpu")
+    line("small_wrap", degree=outer.common.degree(), proof_bytes=len(wrap),
+         cuda_equals_cpu=True, verified=True,
+         seconds=time.perf_counter() - t0)
+    for name, case in (("small_cyclic", small_cyclic),
+                       ("small_stark_wrap", small_stark_wrap),
+                       ("small_staged", small_staged),
+                       ("small_aggregation", small_aggregation),
+                       ("small_checkpoint", small_checkpoint)):
+        t0 = time.perf_counter()
+        facts = case()
+        line(name, **facts, seconds=time.perf_counter() - t0)
+
+
+def small_inner(config, device):
+    """The reference tests' x^2 + y + 42 circuit, built on device."""
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
+    b = CircuitBuilder(config)
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    b.register_public_inputs([x, y, b.add(b.mul(x, x), b.add_const(y, 42))])
+    pw = PartialWitness()
+    pw.set_target(x, 3)
+    pw.set_target(y, 5)
+    return b.build(device), pw
+
+
+def small_cyclic() -> dict:
+    """The reference tests' iterated-hash IVC, two steps on cuda."""
+    from plonky2_tpu_torch.hash.hashing import hash_no_pad_np
+    from plonky2_tpu_torch.models.bench_recursion import recursion_config
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
+    from plonky2_tpu_torch.recursion import (add_virtual_proof_with_pis,
+                                             set_proof_with_pis_target,
+                                             set_verifier_data_target)
+    from plonky2_tpu_torch.recursion.cyclic import (
+        check_cyclic_proof_verifier_data, common_data_for_recursion,
+        conditionally_verify_cyclic_proof_or_dummy, pad_to_common_degree)
+    from plonky2_tpu_torch.recursion.dummy import (common_data_equal,
+                                                   cyclic_base_proof)
+    config = recursion_config(4, 8)
+    common = common_data_for_recursion(config, num_extra_pis=9,
+                                       min_degree_bits=13, device="cuda")
+    b = CircuitBuilder(config)
+    initial = b.add_virtual_targets(4)
+    b.register_public_inputs(initial)
+    current_in = b.add_virtual_targets(4)
+    b.register_public_inputs(b.hash_n_to_hash_no_pad(list(current_in)))
+    counter = b.add_virtual_target()
+    b.register_public_input(counter)
+    b.add_verifier_data_public_inputs()
+    condition = b.add_virtual_target()
+    inner_pt = add_virtual_proof_with_pis(b, common)
+    for t0, t1 in zip(initial, inner_pt.public_inputs[0:4]):
+        b.connect(t0, t1)
+    for i in range(4):
+        b.connect(current_in[i], b.select(
+            condition, inner_pt.public_inputs[4 + i], initial[i]))
+    b.connect(counter, b.add(inner_pt.public_inputs[8], condition))
+    conditionally_verify_cyclic_proof_or_dummy(b, condition, inner_pt, common,
+                                               "cuda")
+    pad_to_common_degree(b, common)
+    data = b.build("cuda")
+    if not common_data_equal(data.common, common):
+        fail("the cyclic circuit's shape diverged from its common data")
+    h = np.array([1, 2, 3, 4], np.uint64)
+    proof = cyclic_base_proof(
+        common, data.verifier_only,
+        {i: int(h[i % 4]) for i in range(8)} | {8: 0}, device="cuda")
+    for step in (0, 1):
+        pw = PartialWitness()
+        pw.set_target(condition, step)
+        set_proof_with_pis_target(pw, inner_pt, proof)
+        set_verifier_data_target(pw, b.verifier_data_public_input,
+                                 data.verifier_only)
+        proof = data.prove(pw)
+        check_cyclic_proof_verifier_data(proof, data.verifier_only, common)
+        data.verify(proof)
+        h = hash_no_pad_np(h)
+        if [int(v) for v in proof.public_inputs[4:9]] != \
+                [int(v) for v in h] + [step]:
+            fail(f"cyclic step {step} has wrong public inputs")
+    return {"degree": data.common.degree(), "steps": 2, "verified": True}
+
+
+def small_stark_wrap() -> dict:
+    """A 2^5-row Fibonacci STARK proof (8 queries) wrapped in a plonk
+    circuit (4 queries), as the reference tests do."""
+    from plonky2_tpu_torch.models.bench_recursion import recursion_config
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.recursive_verifier import (
+        add_virtual_stark_proof, set_stark_proof_target,
+        verify_stark_proof_circuit)
+    sconfig = small_stark_config()
+    stark, trace, pis, _ = fib_inputs(5)
+    stark_proof = prove(stark, sconfig, trace, pis, device="cuda")
+    b = CircuitBuilder(recursion_config(4, 8))
+    pt = add_virtual_stark_proof(b, stark, sconfig, 5)
+    verify_stark_proof_circuit(b, stark, pt, sconfig, 5)
+    b.register_public_inputs(pt.public_inputs)
+    data = b.build("cuda")
+    pw = PartialWitness()
+    set_stark_proof_target(pw, pt, stark_proof)
+    proof = data.prove(pw)
+    data.verify(proof)
+    if [int(v) for v in proof.public_inputs] != [int(v) for v in pis]:
+        fail("the STARK wrapper does not expose the STARK's public inputs")
+    return {"degree": data.common.degree(), "verified": True}
+
+
+def small_stark_config():
+    """The reference recursion tests' STARK config: rate 1, 8 queries."""
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    return StarkConfig(fri_config=FriConfig(
+        rate_bits=1, cap_height=4, proof_of_work_bits=8,
+        reduction_strategy=FriReductionStrategy.constant_arity(4, 5),
+        num_query_rounds=8))
+
+
+def small_staged() -> dict:
+    """The three-table CTL demo: one wrapper circuit per table, seeded from
+    the transcript's boundary states, and the root that ties them."""
+    from plonky2_tpu_torch.models.bench_recursion import recursion_config
+    from plonky2_tpu_torch.models.multi_table import ctl_demo
+    from plonky2_tpu_torch.stark.multi import prove_multi_table
+    from plonky2_tpu_torch.stark.staged import prove_staged
+    sconfig = small_stark_config()
+    starks, ctls, traces = ctl_demo()
+    multi = prove_multi_table(starks, ctls, sconfig, traces, device="cuda")
+    root, _ = prove_staged(starks, ctls, multi, sconfig,
+                           recursion_config(4, 8), device="cuda")
+    return {"tables": len(starks), "root_degree": root.data.common.degree(),
+            "verified": True}
+
+
+def small_aggregation() -> dict:
+    """AllRecursiveCircuits over the two-table demo: built on cuda,
+    checkpointed with to_bytes and restored with from_bytes(device="cuda"),
+    then a root proof, its leaf + leaf aggregation and the first block
+    (the deeper chain of tests/test_torch_aggregation.py was cut to keep
+    the run inside its time)."""
+    from plonky2_tpu_torch.models.bench_recursion import recursion_config
+    from plonky2_tpu_torch.models.multi_table import aggregation_demo
+    from plonky2_tpu_torch.stark.multi import prove_multi_table
+    from plonky2_tpu_torch.zkevm.aggregation import AllRecursiveCircuits
+    sconfig = small_stark_config()
+    starks, ctls, traces = aggregation_demo()
+    multi = prove_multi_table(starks, ctls, sconfig, traces, device="cuda")
+    built = AllRecursiveCircuits(starks, ctls, sconfig, multi.degree_bits(),
+                                 recursion_config(4, 8), device="cuda")
+    blob = built.to_bytes()
+    circuits = AllRecursiveCircuits.from_bytes(blob, starks, ctls, sconfig,
+                                               device="cuda")
+    if circuits.to_bytes() != blob:
+        fail("the aggregation checkpoint does not re-encode to itself")
+    root = circuits.prove_root(multi)
+    agg1 = circuits.prove_aggregation(root, False, root, False)
+    circuits.prove_block(None, agg1)
+    return {"degree": circuits.block.common.degree(),
+            "checkpoint_bytes": len(blob), "proofs": 3, "verified": True}
+
+
+def small_checkpoint() -> dict:
+    """The reference tests' checkpoint circuit: built on cuda, written,
+    read back onto cuda, proved from the copy and verified by both."""
+    from plonky2_tpu_torch.models.bench_recursion import recursion_config
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
+    from plonky2_tpu_torch.utils.serialization import (
+        circuit_data_from_bytes, circuit_data_to_bytes)
+    b = CircuitBuilder(recursion_config(4, 8))
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    out = b.add(b.mul(x, x), b.add_const(y, 42))
+    bits = b.split_le(out, 32)
+    picked = b.random_access(b.constant(3), bits[:4])
+    ext = b.inverse_extension((x, y))
+    lut = tuple((i, (i * i + 1) % 97) for i in range(16))
+    lo = b.add_lookup_from_index(x, b.add_lookup_table_from_pairs(lut))
+    b.register_public_inputs([x, y, out, picked, ext[0], lo])
+    data = b.build("cuda")
+    blob = circuit_data_to_bytes(data)
+    copy = circuit_data_from_bytes(blob, device="cuda")
+    if circuit_data_to_bytes(copy) != blob:
+        fail("the circuit checkpoint does not re-encode to itself")
+    pw = PartialWitness()
+    pw.set_target(x, 3)
+    pw.set_target(y, 5)
+    proof = copy.prove(pw)
+    data.verify(proof)
+    copy.verify(proof)
+    if int(proof.public_inputs[5]) != 10:
+        fail("the checkpointed circuit's lookup output is wrong")
+    return {"checkpoint_bytes": len(blob), "verified": True}
 
 
 # The __global__ functions behind each C entry point, as the profiler names them.
@@ -880,7 +1217,9 @@ def phase_profile(path: str, prove, kernels: list) -> dict:
     from torch.profiler import ProfilerActivity, profile
     for k in kernels:
         k.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events would multiply the trace
+    # that the profiler parses and add nothing the lines below read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         prove()
@@ -925,22 +1264,27 @@ def main() -> int:
     phase_small_plonk()
     phase_small_multi()
     phase_small_plonk_extra()
+    phase_small_recursion()
     kernels = [POSEIDON, HASH_ROWS, LDE, NTT]
     stark_launches, stark_prove = phase_full_prove(kernels, required=kernels)
     stark_profile = phase_profile("stark 2^20 rows", stark_prove, kernels)
     plonk_launches, plonk_prove = phase_plonk(kernels, required=kernels)
     plonk_profile = phase_profile("plonk m=64", plonk_prove, kernels)
+    wrap_launches, wrap_prove = phase_recursion(kernels, required=kernels)
+    wrap_profile = phase_profile("recursion level 0", wrap_prove, kernels)
     zkevm_launches, zkevm_ms = phase_zkevm_transfer(kernels, required=kernels)
     for e, k in zip(entries, kernels):
         by_path = {"stark_2^20": stark_launches[k.symbol],
                    "plonk_m64": plonk_launches[k.symbol],
-                   "zkevm_transfer": zkevm_launches[k.symbol]}
+                   "zkevm_transfer": zkevm_launches[k.symbol],
+                   "recursion_wrap": wrap_launches[k.symbol]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         e["device_ms_per_prove"] = {
             "stark_2^20": stark_profile[k.symbol]["device_ms"],
             "plonk_m64": plonk_profile[k.symbol]["device_ms"],
-            "zkevm_transfer": zkevm_ms[k.symbol]}
+            "zkevm_transfer": zkevm_ms[k.symbol],
+            "recursion_wrap": wrap_profile[k.symbol]["device_ms"]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

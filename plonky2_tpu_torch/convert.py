@@ -11,8 +11,6 @@ port's device.
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 
 from .field.goldilocks import GF
@@ -20,16 +18,15 @@ from .fri.config import FriConfig, FriParams, FriReductionStrategy
 from .fri.oracle import PolynomialBatch
 from .hash.keccak_tree import BytesMerkleCap
 from .hash.merkle import MerkleCap
-from .plonk import targets as tg
 from .plonk.circuit_data import (CircuitData, CommonCircuitData,
                                  ProverOnlyCircuitData, SelectorsInfo,
                                  VerifierOnlyCircuitData)
 from .plonk.config import CircuitConfig
-from .plonk.gates.base import GeneratorSpec
-from .plonk.generators import build_custom_fn
-from .plonk.witness import WitnessSchedule, _Group
+from .plonk.witness import WitnessSchedule
 from .stark.config import StarkConfig
 from .utils.cuda import resolve_device
+from .utils.serialization import (Buffer, gate_from_id, read_schedule,
+                                  write_schedule)
 
 
 def gf_from_jax(x, device) -> GF:
@@ -74,95 +71,14 @@ def circuit_config_from_jax(cfg) -> CircuitConfig:
         fri_config=fri_config_from_jax(cfg.fri_config), hasher=cfg.hasher)
 
 
-def gate_from_id(gate_id: str):
-    """Rebuild a port gate from its id() string (the registry twin of
-    impl_gate_serializer!, gate_serialization.rs:48)."""
-    from .plonk.gates.arithmetic import ArithmeticGate
-    from .plonk.gates.ext_gates import (ArithmeticExtensionGate,
-                                        MulExtensionGate, PoseidonMdsGate,
-                                        ReducingExtensionGate, ReducingGate)
-    from .plonk.gates.interpolation import CosetInterpolationGate
-    from .plonk.gates.lookup import LookupGate, LookupTableGate
-    from .plonk.gates.misc import (BaseSumGate, ExponentiationGate,
-                                   RandomAccessGate)
-    from .plonk.gates.poseidon_gate import PoseidonGate
-    from .plonk.gates.simple import ConstantGate, NoopGate, PublicInputGate
-
-    ints = [int(x) for x in re.findall(r"-?\d+", gate_id)]
-    simple = {"PoseidonMdsGate": PoseidonMdsGate, "PoseidonGate": PoseidonGate,
-              "NoopGate": NoopGate, "PublicInputGate": PublicInputGate}
-    one_int = {"ArithmeticGate": ArithmeticGate,
-               "ArithmeticExtensionGate": ArithmeticExtensionGate,
-               "MulExtensionGate": MulExtensionGate,
-               "ReducingExtensionGate": ReducingExtensionGate,
-               "ReducingGate": ReducingGate, "ConstantGate": ConstantGate,
-               "ExponentiationGate": ExponentiationGate}
-    name = re.match(r"[A-Za-z]+", gate_id).group(0)
-    if name in simple:
-        return simple[name]()
-    if name in one_int:
-        return one_int[name](ints[0])
-    if name == "BaseSumGate":
-        return BaseSumGate(ints[0], ints[1])
-    if name == "RandomAccessGate":
-        return RandomAccessGate(ints[0], ints[1], ints[2])
-    if name == "CosetInterpolationGate":
-        gate = CosetInterpolationGate(ints[0], 1 << ints[0])
-        gate._degree = ints[1]
-        return gate
-    if name == "LookupTableGate":
-        return LookupTableGate(ints[0], ints[1], ints[2])
-    if name == "LookupGate":
-        return LookupGate(ints[0], ints[1])
-    raise ValueError(f"unknown gate id: {gate_id}")
-
-
 def _schedule_from_jax(sched, luts: list) -> WitnessSchedule:
-    """The port's WitnessSchedule with the JAX one's leveled plan (the same
-    fields its checkpoint reader restores); custom generator functions are
-    rebuilt from the port's registry by name."""
-    out = object.__new__(WitnessSchedule)
-    out.num_rows = sched.num_rows
-    out.num_wires = sched.num_wires
-    out.num_virtual = sched.num_virtual
-    out.total = sched.total
-    out.rng_seed = sched.rng_seed
-    out.parents = np.asarray(sched.parents, np.int64).copy()
-
-    def dense(t: int) -> int:
-        if tg.is_wire(t):
-            return tg.wire_row(t) * out.num_wires + tg.wire_column(t)
-        return out.num_rows * out.num_wires + tg.virtual_index(t)
-
-    def custom_fn(name, params):
-        if name is None:
-            raise ValueError("a custom generator without a registry name "
-                             "cannot be carried across")
-        return build_custom_fn(name, tuple(params), luts)
-
-    out._dense = dense
-    out.levels = []
-    for groups in sched.levels:
-        level = []
-        for g in groups:
-            fns = ([custom_fn(nm, g.params[i]) for i, nm in enumerate(g.names)]
-                   if g.kind == "custom" else None)
-            params = (np.asarray(g.params).copy()
-                      if isinstance(g.params, np.ndarray) else list(g.params))
-            level.append(_Group(g.kind, np.asarray(g.dep_reps).copy(),
-                                np.asarray(g.out_reps).copy(), params, fns,
-                                None if g.names is None else list(g.names)))
-        out.levels.append(level)
-    out._residual_specs = [
-        (GeneratorSpec(spec.kind, list(spec.deps), list(spec.outs),
-                       tuple(spec.params),
-                       custom_fn(spec.name, spec.params)
-                       if spec.kind == "custom" else None, spec.name),
-         list(dreps), list(oreps))
-        for spec, dreps, oreps in sched._residual_specs]
-    out.residual = list(sched.residual)
-    out._residual_out_reps = set(sched._residual_out_reps)
-    return out
+    """The port's WitnessSchedule with the JAX one's leveled plan: written
+    by the checkpoint codec (which reads the same fields from either
+    package's schedule) and read back, custom generator functions rebuilt
+    from the port's registry by name."""
+    buf = Buffer()
+    write_schedule(buf, sched)
+    return read_schedule(Buffer(buf.bytes()), luts)
 
 
 def circuit_data_from_jax(data, device=None) -> CircuitData:

@@ -1,6 +1,7 @@
 """Fiat-Shamir challenger: duplex sponge in overwrite mode.
 
-Host twin of reference plonky2/src/iop/challenger.rs:16-160.  Challenges
+Host twin of reference plonky2/src/iop/challenger.rs:16-160, and its
+circuit twin ``RecursiveChallenger`` (challenger.rs:164).  Challenges
 drive host-side control flow (query indices, PoW checks), so the challenger
 runs on numpy u64; each duplex is one width-12 Poseidon permutation, or
 under the keccak config the keccak hash onion of keccak.rs:64
@@ -99,3 +100,75 @@ class Challenger:
             self.input_buffer.clear()
         self.state = self._permute(self.state)
         self.output_buffer = [int(x) for x in gl64.to_canonical(self.state[:RATE])]
+
+
+class RecursiveChallenger:
+    """Circuit twin of ``Challenger`` (reference iop/challenger.rs:164): the
+    same duplex schedule over targets, each permutation one PoseidonGate
+    row."""
+
+    def __init__(self, builder):
+        self.b = builder
+        zero = builder.zero()
+        self.state = [zero] * WIDTH
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+
+    # -- observe -------------------------------------------------------------
+    def observe_element(self, t: int) -> None:
+        self.output_buffer.clear()
+        self.input_buffer.append(t)
+        if len(self.input_buffer) == RATE:
+            self._duplexing()
+
+    def observe_elements(self, ts) -> None:
+        for t in ts:
+            self.observe_element(t)
+
+    def observe_extension_element(self, et: tuple) -> None:
+        self.observe_elements(et)
+
+    def observe_hash(self, h: list) -> None:
+        self.observe_elements(h)
+
+    def observe_cap(self, cap: list) -> None:
+        for h in cap:
+            self.observe_hash(h)
+
+    # -- squeeze -------------------------------------------------------------
+    def get_challenge(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._duplexing()
+        return self.output_buffer.pop()
+
+    def get_n_challenges(self, n: int) -> list:
+        return [self.get_challenge() for _ in range(n)]
+
+    def get_hash(self) -> list:
+        return self.get_n_challenges(4)
+
+    def get_extension_challenge(self) -> tuple:
+        return tuple(self.get_n_challenges(2))
+
+    # -- state snapshots ------------------------------------------------------
+    def compact(self) -> list:
+        if self.input_buffer:
+            self._duplexing()
+        self.output_buffer.clear()
+        return list(self.state)
+
+    @staticmethod
+    def from_state(builder, state: list) -> "RecursiveChallenger":
+        ch = RecursiveChallenger(builder)
+        ch.state = list(state)
+        return ch
+
+    # -- internals -------------------------------------------------------------
+    def _duplexing(self) -> None:
+        assert len(self.input_buffer) <= RATE
+        for i, t in enumerate(self.input_buffer):
+            self.state[i] = t
+        self.input_buffer.clear()
+        false_t = self.b.zero()
+        self.state = self.b.permute_swapped(self.state, false_t)
+        self.output_buffer = list(self.state[:RATE])

@@ -1,4 +1,4 @@
-"""Two small multi-table STARK statements tied by cross-table lookups.
+"""Three small multi-table STARK statements tied by cross-table lookups.
 
 ``ctl_demo``: a products table (z = x*y on flagged rows) and two request
 tables whose flagged rows must all appear in it; one request table carries
@@ -7,7 +7,9 @@ exercised.  ``zkevm_bus_demo``: the zkEVM's LogicStark and MemoryStark,
 looked up by a small bus table that stands in for the CPU.  The tables,
 traces and seeds are those of the JAX package's tests (tests/test_ctl.py,
 tests/test_zkevm.py), so proofs of them can be compared byte for byte.
-Each function returns (starks, ctls, traces), traces as host u64 arrays.
+``aggregation_demo``: the two-table statement that the aggregation
+circuits wrap (tests/test_zkevm_aggregation.py).  Each function returns
+(starks, ctls, traces), traces as host u64 arrays.
 """
 
 from __future__ import annotations
@@ -113,6 +115,27 @@ def ctl_demo_ctls() -> list:
 def ctl_demo() -> tuple:
     return ([MulStark(), ReqStark(), Req2Stark()], ctl_demo_ctls(),
             ctl_demo_traces())
+
+
+def aggregation_demo() -> tuple:
+    """The JAX package's tests/test_zkevm_aggregation.py statement: a
+    products table and one requests table holding its 16 exported rows in
+    a shuffled order (seed 5), the multi-table proof that the aggregation
+    circuits wrap."""
+    x = np.arange(N, dtype=np.uint64)
+    y = x + np.uint64(3)
+    f = np.zeros(N, np.uint64)
+    f[:16] = 1
+    mul = np.stack([x, y, gl64.mul(x, y), f])
+    req = np.zeros((4, N), np.uint64)
+    order = np.random.default_rng(5).permutation(16)
+    req[:3, :16] = mul[:3, :16][:, order]
+    req[3, :16] = 1
+    cols = Column.singles([0, 1, 2])
+    ctls = [CrossTableLookup(
+        looking_tables=(TableWithColumns(1, tuple(cols), Column.single(3)),),
+        looked_table=TableWithColumns(0, tuple(cols), Column.single(3)))]
+    return [MulStark(), Req2Stark()], ctls, [mul, req]
 
 
 class BusStark(Stark):

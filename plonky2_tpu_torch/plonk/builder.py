@@ -99,8 +99,15 @@ class CircuitBuilder(BuilderGadgets):
         """Allocate this circuit's own verifier data as public inputs — the
         cyclic-recursion hook (circuit_builder.rs:335).  Layout at the END of
         the public inputs: [..., circuit_digest (4), cap (4 * 2^cap_height)]."""
-        raise NotImplementedError(
-            "cyclic recursion is ported with the recursion slice")
+        assert getattr(self, "verifier_data_public_input", None) is None, \
+            "add_verifier_data_public_inputs may only be called once"
+        from ..recursion.recursive_verifier import add_virtual_verifier_data
+        vdt = add_virtual_verifier_data(self, self.config.fri_config.cap_height)
+        self.register_public_inputs(vdt.circuit_digest)
+        for h in vdt.constants_sigmas_cap:
+            self.register_public_inputs(h)
+        self.verifier_data_public_input = vdt
+        return vdt
 
     def connect(self, x: int, y: int) -> None:
         assert tg.is_routable(x, self.config.num_routed_wires), "not routable"

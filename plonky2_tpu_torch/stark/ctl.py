@@ -91,10 +91,13 @@ class Column:
         """ctx-polymorphic evaluation on one row of ctx elements
         (cross_table_lookup.rs:97 / :118)."""
         acc = ctx.constant(self.constant)
+        # a unit coefficient needs no multiply (most filters and packed
+        # limbs); the sum is the same field element either way.  A circuit
+        # ctx keeps the multiply: its gates are the reference's circuit
+        skip_unit = not getattr(ctx, "builds_circuit", False)
         for c, k in self.linear_combination:
-            # a unit coefficient needs no multiply (most filters and packed
-            # limbs); the sum is the same field element either way
-            acc = acc + (values[c] if k == 1 else values[c] * ctx.constant(k))
+            acc = acc + (values[c] if k == 1 and skip_unit
+                         else values[c] * ctx.constant(k))
         return acc
 
 
@@ -236,11 +239,15 @@ def eval_cross_table_lookup_checks(ctx, vars, ctl_vars: list,
     Z(gw) = Z(w) * select(f(gw), comb(gw)), select(f, x) = f*x + 1 - f."""
     one = ctx.one()
     # every challenge checks the same columns and filters: evaluate each
-    # (column, row) once
+    # (column, row) once, except in a circuit ctx, which builds the
+    # reference's circuit
     evals = {}
+    reuse = not getattr(ctx, "builds_circuit", False)
 
     def column_eval(column, values):
         key = (column, id(values))
+        if not reuse:
+            return column.eval(ctx, values)
         if key not in evals:
             evals[key] = column.eval(ctx, values)
         return evals[key]

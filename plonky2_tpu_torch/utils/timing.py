@@ -56,6 +56,16 @@ class TimingTree:
         end = self.end if self.end is not None else time.perf_counter()
         return end - self.start
 
+    def lines(self, depth: int = 0):
+        yield f"{'  ' * depth}{self.duration()*1e3:9.3f}ms  {self.name}"
+        for c in self.children:
+            yield from c.lines(depth + 1)
+
+    def print(self):
+        self.close()
+        for line in self.lines():
+            print(line)
+
     def as_dict(self):
         return {
             "name": self.name,

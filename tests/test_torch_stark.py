@@ -47,6 +47,13 @@ ZKEVM_SLICE_MODULES = [
     "zkevm.lookup", "zkevm.memory", "zkevm.mpt", "zkevm.opcodes",
     "zkevm.program", "zkevm.rlp", "zkevm.serialization", "zkevm.transfer",
     "zkevm.kernel", "zkevm.kernel.aggregator", "zkevm.kernel.assembler"]
+# the modules of the recursion, aggregation and checkpoint slice
+RECURSION_SLICE_MODULES = [
+    "iop.challenger", "recursion", "recursion.ctx",
+    "recursion.recursive_verifier", "recursion.dummy",
+    "recursion.conditional", "recursion.cyclic", "fri.recursive_verifier",
+    "models.bench_recursion", "stark.recursive_verifier",
+    "stark.multi_recursive", "stark.staged", "zkevm.aggregation"]
 
 
 def fib_pis(stark, x0, x1):
@@ -124,7 +131,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m == 'plonky2_tpu' "
         "or m.startswith('plonky2_tpu.')]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES!r} "
+        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES + RECURSION_SLICE_MODULES!r} "
         "if 'plonky2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules "
