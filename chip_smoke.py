@@ -30,15 +30,15 @@ Phases, one line each:
      standard_recursion_zk_config verifies;
   8. small multi-table proofs (models/multi_table.py: the three-table CTL
      demo and Logic + Memory + a bus table) under standard_fast_config and
-     under the keccak config, each proved on cuda (and, under the first,
-     on cpu with equal multi_proof_to_bytes), verified, and rejected with
-     a tampered CTL Z;
+     under the keccak config, each proved on cuda (and the CTL demo under
+     the first also on cpu with equal multi_proof_to_bytes), verified, and
+     rejected with a tampered CTL Z;
   9. a two-LUT lookup plonk circuit and an m = 2 matmul circuit under
      standard_keccak_config, each proved on cuda and on cpu with equal
      proof bytes and verified;
  10. the recursion slice's small cases on cuda, each proved and verified:
-     a 4-query wrap of the reference tests' x^2 + y + 42 proof (also on
-     cpu, equal bytes), a two-step cyclic IVC, the wrap of a 2^5-row
+     a 4-query wrap of the reference tests' x^2 + y + 42 proof, a
+     two-step cyclic IVC, the wrap of a 2^5-row
      Fibonacci STARK proof, the staged per-table wrappers and root of the
      three-table CTL demo, the aggregation root, a leaf aggregation and a
      first block of a two-table demo through a to_bytes /
@@ -73,7 +73,23 @@ Phases, one line each:
      (CUDA events around its calls) and the device's busy share from
      nvidia-smi's utilization samples (the prove's millions of launches
      are too many for torch.profiler's parsing);
- 18. a JSON line with every kernel's launches and device ms per prove on
+ 18. the sharded phase: the distributed prover (plonky2_tpu_torch.parallel)
+     on a world launched by spawn_world: min(cards, 4) ranks over NCCL on
+     a machine with two or more cards, else 2 ranks on cuda:0 over gloo.
+     On every rank: four_step_ntt at 2^20 points equals the single-device
+     ntt; dp_lde_and_leaf_hash at (135, 2^15), rate 3, equals the
+     single-device LDE and leaf hashes; the 2^20-row STARK (cold, warm,
+     profiled) and the m = 64 matmul circuit (read from a checkpoint of
+     phase 13's build; cold, warm) proved with mesh= give the single-device
+     proof bytes of phases 11 and 13, and verify; the three-table CTL demo proved sharded and through two
+     device groups, and a pipelined stream of three 2^10-row STARKs over
+     the two groups, give the single-device bytes; all_processes_equal
+     holds on every proof's bytes.  The line gives the backend, world size,
+     cards, ranks per card, collective bytes per prove, each check's
+     seconds, the warm sharded and single-device prove seconds, and each
+     rank's device idle share in the profiled STARK prove (under NCCL
+     the collectives' own kernels count as busy);
+ 19. a JSON line with every kernel's launches and device ms per prove on
      each path, times and bound.
 A kernel that a path should run and that launched no time there fails the
 run.  The last line is {"ok": true, "device": {...}}.  Any failure exits
@@ -507,10 +523,11 @@ def phase_small_plonk() -> None:
 def phase_small_multi(devices=("cuda", "cpu")) -> None:
     """The three-table CTL demo and the Logic + Memory + bus demo
     (models/multi_table.py) under the Poseidon and the keccak configs:
-    proved on cuda, and under the Poseidon config also on cpu with equal
-    multi_proof_to_bytes (the keccak config's cpu twins were cut to keep
-    the run inside its time; tests/test_torch_multi.py holds both hashers'
-    bytes against the JAX package on the CPU), accepted by the verifier,
+    proved on cuda, and the CTL demo under the Poseidon config also on cpu
+    with equal multi_proof_to_bytes (the other cpu twins were cut to keep
+    the run inside its time; tests/test_torch_multi.py holds both demos'
+    and both hashers' bytes against the JAX package on the CPU), accepted
+    by the verifier,
     and rejected once the looked table's final CTL product is tampered
     with."""
     from plonky2_tpu_torch.field import gl64
@@ -525,7 +542,8 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
         for hasher in ("poseidon", "keccak"):
             starks, ctls, traces = demo()
             config = StarkConfig(hasher=hasher)
-            twins = devices if hasher == "poseidon" else devices[:1]
+            twins = devices if (name, hasher) == ("ctl_demo", "poseidon") \
+                else devices[:1]
             proofs = [prove_multi_table(starks, ctls, config, traces,
                                         device=d) for d in twins]
             data = [multi_proof_to_bytes(p, hasher) for p in proofs]
@@ -543,7 +561,8 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
             else:
                 fail(f"{name}: a tampered CTL Z was accepted under {hasher}")
             sizes[f"{name}/{hasher}"] = len(data[0])
-    line("small_multi", proof_bytes=sizes, cuda_equals_cpu="poseidon",
+    line("small_multi", proof_bytes=sizes,
+         cuda_equals_cpu="ctl_demo/poseidon",
          verified=True, tampered_ctl_z_rejected=True)
 
 
@@ -655,7 +674,10 @@ def phase_full_prove(kernels: list, required: list):
          calls=warm["calls"], launches=warm["launches"],
          max_memory_allocated=warm["max_memory_allocated"],
          timing=warm["timing"], verified=True)
-    return warm["launches"], lambda: prove(stark, config, trace, pis)
+    from plonky2_tpu_torch.utils.serialization import stark_proof_to_bytes
+    ref = {"bytes": stark_proof_to_bytes(res["proof"]),
+           "warm_seconds": warm["seconds"]}
+    return warm["launches"], lambda: prove(stark, config, trace, pis), ref
 
 
 def phase_plonk(kernels: list, required: list):
@@ -671,6 +693,7 @@ def phase_plonk(kernels: list, required: list):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_mem = torch.cuda.max_memory_allocated()
+    data.prover_only.schedule.rng_seed = 1    # the PI gate's random wires
     a, b = matmul_inputs(m, seed=10)
     pw = matrix_mul_witness(at, bt, a, b)
     res = run_path("plonk", lambda timing: data.prove(pw, timing), kernels,
@@ -691,7 +714,12 @@ def phase_plonk(kernels: list, required: list):
          calls=warm["calls"], launches=warm["launches"],
          max_memory_allocated=warm["max_memory_allocated"],
          timing=warm["timing"], verified=True, product_checked=True)
-    return warm["launches"], lambda: data.prove(pw)
+    from plonky2_tpu_torch.utils.serialization import (circuit_data_to_bytes,
+                                                       proof_with_pis_to_bytes)
+    ref = {"bytes": proof_with_pis_to_bytes(proof),
+           "warm_seconds": warm["seconds"],
+           "circuit": (circuit_data_to_bytes(data), at, bt)}
+    return warm["launches"], lambda: data.prove(pw), ref
 
 
 # The reference package's tests/test_zkevm_transfer.py _base_inputs(): sender
@@ -974,8 +1002,10 @@ def phase_recursion(kernels: list, required: list):
 
 def phase_small_recursion() -> None:
     """The recursion slice's small cases on cuda, each proved and verified:
-    the 4-query wrap (the reference tests' x^2 + y + 42 inner circuit),
-    also on cpu with equal proof bytes; a two-step cyclic IVC; the wrap of a
+    the 4-query wrap (the reference tests' x^2 + y + 42 inner circuit; its
+    cpu twin was cut to keep the run inside its time, and
+    tests/test_torch_recursion.py proves it on the CPU); a two-step cyclic
+    IVC; the wrap of a
     2^5-row Fibonacci STARK proof; the staged per-table wrappers and root of
     the three-table CTL demo; the aggregation root, a leaf aggregation and
     a first block of the two-table demo through a to_bytes /
@@ -987,23 +1017,17 @@ def phase_small_recursion() -> None:
     from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
     config = recursion_config(4, 8)
     t0 = time.perf_counter()
-    out = {}
-    for device in ("cuda", "cpu"):
-        inner, pw = small_inner(config, device)
-        inner.prover_only.schedule.rng_seed = 1
-        inner_proof = inner.prove(pw)
-        outer, pt, vdt = build_wrapper(config, inner.common, device)
-        outer.prover_only.schedule.rng_seed = 1
-        out[device] = outer.prove(wrapper_witness(pt, vdt, inner_proof,
-                                                  inner.verifier_only))
-        if device == "cuda":
-            outer.verify(out[device])
-    wrap = proof_with_pis_to_bytes(out["cuda"])
-    if wrap != proof_with_pis_to_bytes(out["cpu"]):
-        fail("4-query wrapper proof bytes differ between cuda and cpu")
+    inner, pw = small_inner(config, "cuda")
+    inner.prover_only.schedule.rng_seed = 1
+    inner_proof = inner.prove(pw)
+    outer, pt, vdt = build_wrapper(config, inner.common, "cuda")
+    outer.prover_only.schedule.rng_seed = 1
+    proof = outer.prove(wrapper_witness(pt, vdt, inner_proof,
+                                        inner.verifier_only))
+    outer.verify(proof)
+    wrap = proof_with_pis_to_bytes(proof)
     line("small_wrap", degree=outer.common.degree(), proof_bytes=len(wrap),
-         cuda_equals_cpu=True, verified=True,
-         seconds=time.perf_counter() - t0)
+         verified=True, seconds=time.perf_counter() - t0)
     for name, case in (("small_cyclic", small_cyclic),
                        ("small_stark_wrap", small_stark_wrap),
                        ("small_staged", small_staged),
@@ -1208,11 +1232,11 @@ KERNEL_FUNCTIONS = {"poseidon_permute": ("poseidon_kernel",),
                     "ntt": ("dft_kernel",)}
 
 
-def phase_profile(path: str, prove, kernels: list) -> dict:
-    """One more prove under torch.profiler: device busy time (one stream,
-    so kernels do not overlap), the device's idle share of the wall time,
-    and device time and launches of the ported kernels and the largest
-    others."""
+def profile_prove(prove, kernels: list) -> dict:
+    """One prove under torch.profiler: this process's device busy time
+    (one stream, so its kernels do not overlap), its idle share of the wall
+    time, and device time and launches of the ported kernels and the
+    largest others."""
     import collections
     from torch.profiler import ProfilerActivity, profile
     for k in kernels:
@@ -1232,20 +1256,267 @@ def phase_profile(path: str, prove, kernels: list) -> dict:
             us[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
     busy_ms = sum(us.values()) / 1e3
-    if busy_ms == 0:
-        fail("the profiler recorded no device time")
     ported = {}
     for k in kernels:
         names = [n for n in us if any(f in n for f in KERNEL_FUNCTIONS[k.symbol])]
         ported[k.symbol] = {"device_ms": sum(us[n] for n in names) / 1e3,
                             "profiled_launches": sum(count[n] for n in names),
                             "counted_launches": k.launches}
-    line("profile", path=path, wall_ms_profiled=wall_ms,
-         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-         device_launches=sum(count.values()), ported=ported,
-         top_kernels=[{"name": n[:90], "ms": t / 1e3, "count": count[n]}
-                      for n, t in us.most_common(12)])
-    return ported
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_launches": sum(count.values()), "ported": ported,
+            "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": count[n]}
+                            for n, t in us.most_common(12)]}
+
+
+def phase_profile(path: str, prove, kernels: list) -> dict:
+    """One more prove under torch.profiler (profile_prove)."""
+    prof = profile_prove(prove, kernels)
+    if prof["device_busy_ms"] == 0:
+        fail("the profiler recorded no device time")
+    line("profile", path=path, **prof)
+    return prof["ported"]
+
+
+# The sharded phase's world: one rank per card over NCCL, up to four cards;
+# on one card two ranks over gloo (NCCL refuses two ranks on one GPU), which
+# still run the real 2-shard code on the card.
+SHARDED_MAX_WORLD = 4
+STREAM_SEEDS = ((0, 1), (2, 5), (3, 7))   # the pipelined stream's STARKs
+STREAM_LOG_ROWS = 10
+
+
+def sharded_world() -> tuple:
+    """(world size, backend, device of each rank)."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        world = min(count, SHARDED_MAX_WORLD)
+        return world, "nccl", [f"cuda:{r}" for r in range(world)]
+    return 2, "gloo", ["cuda:0", "cuda:0"]
+
+
+def sharded_rank(mesh, refs_path: str) -> dict:
+    """The sharded phase on one rank: every check against the single-device
+    result, each with its seconds; the warm sharded proves' kernel launches
+    (counts set to 0 just before, read just after), collective bytes and
+    seconds; the profiled STARK prove's device idle share."""
+    import pickle
+    from plonky2_tpu_torch.field import ntt
+    from plonky2_tpu_torch.field.goldilocks import GF
+    from plonky2_tpu_torch.field.ntt import LDE, NTT
+    from plonky2_tpu_torch.hash.hashing import HASH_ROWS, hash_or_noop
+    from plonky2_tpu_torch.hash.poseidon import POSEIDON
+    from plonky2_tpu_torch.models.matrix_mul import matrix_mul_witness
+    from plonky2_tpu_torch.models.multi_table import ctl_demo
+    from plonky2_tpu_torch.parallel import mesh as M
+    from plonky2_tpu_torch.parallel.distributed import all_processes_equal
+    from plonky2_tpu_torch.parallel.groups import (device_groups,
+                                                   pipeline_prove_stream)
+    from plonky2_tpu_torch.parallel.multi_prover import \
+        prove_multi_table_sharded
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.multi import prove_multi_table
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    from plonky2_tpu_torch.utils.serialization import (circuit_data_from_bytes,
+                                                       proof_with_pis_to_bytes,
+                                                       stark_proof_to_bytes)
+    from plonky2_tpu_torch.zkevm.serialization import multi_proof_to_bytes
+
+    with open(refs_path, "rb") as f:
+        refs = pickle.load(f)
+    kernels = [POSEIDON, HASH_ROWS, LDE, NTT]
+    dev = mesh.device
+    checks, seconds, out = {}, {}, {"rank": mesh.rank, "device": str(dev)}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        return value
+
+    def path_run(name, fn):
+        """fn() once more with every kernel count and the collective bytes
+        set to 0 just before it and read just after."""
+        for k in kernels:
+            k.reset()
+        M.reset_bytes_moved()
+        value = timed(name, fn)
+        out[name] = {"launches": {k.symbol: k.launches for k in kernels},
+                     "collective_bytes": M.bytes_moved()}
+        return value
+
+    # four_step_ntt at 2^20 points against the single-device ntt
+    x = GF.from_u64(np.random.default_rng(20).integers(
+        0, 2**64 - 2**32 + 1, size=1 << 20, dtype=np.uint64), dev)
+    c = timed("four_step_ntt_2^20", lambda: M.four_step_ntt(x, mesh))
+    got = GF(M.all_gather(c.v, mesh, axis=1).reshape(-1)).to_u64()
+    checks["four_step_ntt_2^20"] = bool(np.array_equal(
+        got, ntt.ntt(x).to_u64()))
+
+    # dp_lde_and_leaf_hash at the plonk wires' (135, 2^15), rate 3
+    polys = GF.from_u64(np.random.default_rng(21).integers(
+        0, 2**64 - 2**32 + 1, size=(135, 1 << 15), dtype=np.uint64), dev)
+    d = timed("dp_lde_and_leaf_hash", lambda: M.dp_lde_and_leaf_hash(
+        M.shard_polys(polys, mesh), 3, 7, mesh, num_polys=135))
+    got = GF(M.all_gather(d.v, mesh)).to_u64()
+    want = hash_or_noop(GF(ntt.lde(polys, 3, shift=7).v.transpose(0, 1)
+                           .contiguous())).to_u64()
+    checks["dp_lde_and_leaf_hash"] = bool(np.array_equal(got, want))
+    del x, polys, d, c, got, want
+
+    # the 2^20-row STARK: cold, warm (counted), profiled
+    config = StarkConfig.standard_fast_config()
+    stark, trace, pis, _ = fib_inputs(20)
+
+    def stark_prove():
+        return prove(stark, config, trace, pis, mesh=mesh)
+    cold = stark_proof_to_bytes(timed("stark_cold", stark_prove))
+    stark_proof = path_run("sharded_stark_2^20", stark_prove)
+    stark_bytes = stark_proof_to_bytes(stark_proof)
+    checks["stark_bytes_equal_single_device"] = stark_bytes == refs["stark"]
+    checks["stark_repeat_equal"] = cold == stark_bytes
+    prof = profile_prove(stark_prove, kernels)
+    out["stark_profile"] = {k: prof[k] for k in (
+        "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+        "device_launches", "ported")}
+    del trace
+
+    # the m = 64 matmul plonk circuit at standard_recursion_config, read
+    # from the checkpoint of phase 13's build (its witness seed included)
+    blob, at, bt = refs["plonk_circuit"]
+    data = timed("plonk_load", lambda: circuit_data_from_bytes(blob,
+                                                              device=dev))
+    del blob
+    a, b = matmul_inputs(64, seed=10)
+    pw = matrix_mul_witness(at, bt, a, b)
+    cold = proof_with_pis_to_bytes(timed(
+        "plonk_cold", lambda: data.prove(pw, mesh=mesh)))
+    plonk_proof = path_run("sharded_plonk_m64",
+                           lambda: data.prove(pw, mesh=mesh))
+    plonk_bytes = proof_with_pis_to_bytes(plonk_proof)
+    checks["plonk_bytes_equal_single_device"] = plonk_bytes == refs["plonk"]
+    checks["plonk_repeat_equal"] = cold == plonk_bytes
+
+    # models/multi_table.py: sharded, and through two device groups
+    starks, ctls, traces = ctl_demo()
+    multi = multi_proof_to_bytes(timed(
+        "multi_table_sharded", lambda: prove_multi_table_sharded(
+            starks, ctls, config, traces, mesh=mesh)))
+    checks["multi_table_sharded_equal"] = multi == refs["multi"]
+    groups = device_groups(2, mesh)
+    grouped = multi_proof_to_bytes(timed(
+        "multi_table_mesh_groups", lambda: prove_multi_table(
+            starks, ctls, config, traces, mesh_groups=groups)))
+    checks["multi_table_mesh_groups_equal"] = grouped == refs["multi"]
+
+    # the pipelined stream over the two groups
+    cases = [fib_inputs(STREAM_LOG_ROWS, a, b) for a, b in STREAM_SEEDS]
+    stream = timed("pipeline_prove_stream", lambda: pipeline_prove_stream(
+        cases[0][0], config, [c[1] for c in cases], [c[2] for c in cases],
+        groups))
+    stream = [stark_proof_to_bytes(p) for p in stream]
+    checks["pipeline_stream_equal_sequential"] = stream == refs["stream"]
+
+    everything = (stark_bytes + plonk_bytes + multi + grouped
+                  + b"".join(stream))
+    checks["all_processes_equal"] = all_processes_equal(everything, mesh)
+
+    # host verifiers last, so that no rank waits in a collective meanwhile
+    if mesh.rank == 0:
+        timed("stark_verify", lambda: verify_stark_proof(stark, stark_proof,
+                                                         config, 20))
+        checks["stark_verified"] = True
+    if mesh.rank == mesh.size - 1:
+        timed("plonk_verify", lambda: data.verify(plonk_proof))
+        checks["plonk_verified"] = True
+    out.update(checks=checks, seconds=seconds,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def phase_sharded(stark_ref: dict, plonk_ref: dict) -> dict:
+    """The sharded phase: the distributed prover (plonky2_tpu_torch.parallel)
+    through spawn_world, every check held to the single-device result of
+    this run; returns each kernel's launches on the sharded paths and their
+    device ms per prove (summed over the ranks)."""
+    import pickle
+    import shutil
+    import tempfile
+    from plonky2_tpu_torch.models.multi_table import ctl_demo
+    from plonky2_tpu_torch.parallel.distributed import spawn_world
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.multi import prove_multi_table
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.utils.serialization import stark_proof_to_bytes
+    from plonky2_tpu_torch.zkevm.serialization import multi_proof_to_bytes
+
+    config = StarkConfig.standard_fast_config()
+    starks, ctls, traces = ctl_demo()
+    cases = [fib_inputs(STREAM_LOG_ROWS, a, b) for a, b in STREAM_SEEDS]
+    refs = {"stark": stark_ref["bytes"], "plonk": plonk_ref["bytes"],
+            "plonk_circuit": plonk_ref["circuit"],
+            "multi": multi_proof_to_bytes(prove_multi_table(
+                starks, ctls, config, traces)),
+            "stream": [stark_proof_to_bytes(prove(s, config, t, p))
+                       for s, t, p, _ in cases]}
+    world, backend, devices = sharded_world()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        refs_path = os.path.join(tmp, "refs.pkl")
+        with open(refs_path, "wb") as f:
+            pickle.dump(refs, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(sharded_rank, world, backend,
+                                lambda r: devices[r], args=(refs_path,),
+                                timeout_s=600)
+        except Exception as exc:
+            fail(f"the sharded world failed: {exc}")
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:
+        bad = [name for name, ok in r["checks"].items() if not ok]
+        if bad:
+            fail(f"sharded rank {r['rank']}: {bad} failed")
+        for path in ("sharded_stark_2^20", "sharded_plonk_m64"):
+            for sym, n in r[path]["launches"].items():
+                if n == 0:
+                    fail(f"kernel {sym} was not launched on rank {r['rank']} "
+                         f"of the {path} path")
+    cards = len(set(devices))
+    line("sharded", backend=backend, world_size=world, cards=cards,
+         ranks_per_card=world // cards, devices=devices,
+         world_seconds=world_s,
+         collective_bytes_per_prove={
+             path: [r[path]["collective_bytes"] for r in ranks]
+             for path in ("sharded_stark_2^20", "sharded_plonk_m64")},
+         warm_prove_seconds={
+             "stark_2^20": {"sharded": [r["seconds"]["sharded_stark_2^20"]
+                                        for r in ranks],
+                            "single_device": stark_ref["warm_seconds"]},
+             "plonk_m64": {"sharded": [r["seconds"]["sharded_plonk_m64"]
+                                       for r in ranks],
+                           "single_device": plonk_ref["warm_seconds"]}},
+         stark_device_idle_share=[r["stark_profile"]["device_idle_share"]
+                                  for r in ranks],
+         stark_profile=[r["stark_profile"] for r in ranks],
+         seconds=[r["seconds"] for r in ranks],
+         checks={k: v for r in ranks for k, v in r["checks"].items()},
+         launches={path: [r[path]["launches"] for r in ranks]
+                   for path in ("sharded_stark_2^20", "sharded_plonk_m64")},
+         max_memory_allocated=[r["max_memory_allocated"] for r in ranks])
+    launches = {path: {sym: sum(r[path]["launches"][sym] for r in ranks)
+                       for sym in ranks[0][path]["launches"]}
+                for path in ("sharded_stark_2^20", "sharded_plonk_m64")}
+    device_ms = {sym: sum(r["stark_profile"]["ported"][sym]["device_ms"]
+                          for r in ranks)
+                 for sym in ranks[0]["stark_profile"]["ported"]}
+    return {"launches": launches, "stark_device_ms": device_ms}
 
 
 def main() -> int:
@@ -1266,25 +1537,33 @@ def main() -> int:
     phase_small_plonk_extra()
     phase_small_recursion()
     kernels = [POSEIDON, HASH_ROWS, LDE, NTT]
-    stark_launches, stark_prove = phase_full_prove(kernels, required=kernels)
+    stark_launches, stark_prove, stark_ref = phase_full_prove(
+        kernels, required=kernels)
     stark_profile = phase_profile("stark 2^20 rows", stark_prove, kernels)
-    plonk_launches, plonk_prove = phase_plonk(kernels, required=kernels)
+    plonk_launches, plonk_prove, plonk_ref = phase_plonk(
+        kernels, required=kernels)
     plonk_profile = phase_profile("plonk m=64", plonk_prove, kernels)
     wrap_launches, wrap_prove = phase_recursion(kernels, required=kernels)
     wrap_profile = phase_profile("recursion level 0", wrap_prove, kernels)
     zkevm_launches, zkevm_ms = phase_zkevm_transfer(kernels, required=kernels)
+    sharded = phase_sharded(stark_ref, plonk_ref)
     for e, k in zip(entries, kernels):
         by_path = {"stark_2^20": stark_launches[k.symbol],
                    "plonk_m64": plonk_launches[k.symbol],
                    "zkevm_transfer": zkevm_launches[k.symbol],
-                   "recursion_wrap": wrap_launches[k.symbol]}
+                   "recursion_wrap": wrap_launches[k.symbol],
+                   "sharded_stark_2^20":
+                       sharded["launches"]["sharded_stark_2^20"][k.symbol],
+                   "sharded_plonk_m64":
+                       sharded["launches"]["sharded_plonk_m64"][k.symbol]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         e["device_ms_per_prove"] = {
             "stark_2^20": stark_profile[k.symbol]["device_ms"],
             "plonk_m64": plonk_profile[k.symbol]["device_ms"],
             "zkevm_transfer": zkevm_ms[k.symbol],
-            "recursion_wrap": wrap_profile[k.symbol]["device_ms"]}
+            "recursion_wrap": wrap_profile[k.symbol]["device_ms"],
+            "sharded_stark_2^20": sharded["stark_device_ms"][k.symbol]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,10 +161,11 @@ class CircuitData:
         self.verifier_only = verifier_only
         self.common = common
 
-    def prove(self, pw, timing=None):
-        """Prove on the device the constants and sigmas were committed on."""
+    def prove(self, pw, timing=None, mesh=None):
+        """Prove on the device the constants and sigmas were committed on;
+        with mesh=, distributed over the mesh's ranks (plonk/prover.py)."""
         from .prover import prove
-        return prove(self.prover_only, self.common, pw, timing)
+        return prove(self.prover_only, self.common, pw, timing, mesh=mesh)
 
     def verify(self, proof_with_pis) -> None:
         from .verifier import verify

@@ -38,9 +38,17 @@ P = gl64.ORDER_INT
 
 
 def prove(prover_data: ProverOnlyCircuitData, common: CommonCircuitData,
-          inputs: PartialWitness,
-          timing: TimingTree | None = None) -> ProofWithPublicInputs:
-    """Prove on the device that holds the circuit's constants and sigmas."""
+          inputs: PartialWitness, timing: TimingTree | None = None,
+          mesh=None) -> ProofWithPublicInputs:
+    """Prove on the device that holds the circuit's constants and sigmas.
+
+    mesh: a parallel.mesh.Mesh runs the whole pipeline distributed over
+    its ranks (parallel/plonk_prover.py), on the rank's mesh.device, and
+    returns a byte-identical proof; every rank calls prove with the same
+    arguments."""
+    if mesh is not None:
+        from ..parallel.plonk_prover import prove_sharded
+        return prove_sharded(prover_data, common, inputs, mesh, timing)
     device = prover_data.constants_sigmas_commitment.polynomials.device
     timing = timing if timing is not None else TimingTree("prove", device)
     config = common.config

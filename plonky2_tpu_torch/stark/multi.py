@@ -197,10 +197,19 @@ def cross_table_lookup_data_gf(traces: list, ctls: list,
 def prove_multi_table(starks: list, ctls: list, config: StarkConfig,
                       trace_poly_values: list, public_inputs: list = None,
                       timing: TimingTree | None = None,
-                      device=None) -> MultiProof:
+                      device=None, mesh_groups: list = None) -> MultiProof:
     """(evm/src/prover.rs:94 prove_with_traces) trace_poly_values: per
     table an (COLUMNS, n) u64 array of subgroup evaluations.  device:
-    where the prove runs; None means CUDA."""
+    where the prove runs; None means CUDA.
+
+    mesh_groups: optionally a list of rank groups
+    (parallel.groups.device_groups); the trace commitments then run on
+    them, table t on group t % len(groups), concurrently, and are handed
+    to every rank, which proves the rest on its mesh device, bit-identical
+    to the single-device path.  Every rank calls this with the same
+    arguments."""
+    if mesh_groups:
+        device = mesh_groups[0].device
     device = resolve_device(device)
     if timing is None:
         timing = TimingTree("prove", device)
@@ -212,10 +221,17 @@ def prove_multi_table(starks: list, ctls: list, config: StarkConfig,
 
     traces = [GF.from_u64(t, device) for t in trace_poly_values]
     with timing.scope("compute all trace commitments"):
-        trace_commitments = [
-            PolynomialBatch.from_values(t, rate_bits, False, cap_height,
-                                        config.hasher)
-            for t in traces]
+        if mesh_groups:
+            if config.hasher != "poseidon":
+                raise ValueError("the device groups commit with Poseidon")
+            from ..parallel.groups import grouped_trace_commitments
+            trace_commitments = grouped_trace_commitments(
+                traces, rate_bits, cap_height, mesh_groups)
+        else:
+            trace_commitments = [
+                PolynomialBatch.from_values(t, rate_bits, False, cap_height,
+                                            config.hasher)
+                for t in traces]
 
     challenger = Challenger(permutation_for(config.hasher))
     for c in trace_commitments:

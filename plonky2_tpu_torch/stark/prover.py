@@ -33,9 +33,27 @@ P = gl64.ORDER_INT
 
 def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,
           public_inputs: np.ndarray, timing: TimingTree | None = None,
-          device=None) -> StarkProofWithPublicInputs:
+          device=None, trace_commitment=None,
+          mesh=None) -> StarkProofWithPublicInputs:
     """trace_poly_values: (COLUMNS, degree) evaluations over the subgroup.
-    device: where the prove runs; None means CUDA."""
+    device: where the prove runs; None means CUDA.
+
+    trace_commitment: optionally a precomputed PolynomialBatch of the
+    trace on that device (e.g. from a pipelined device group,
+    parallel/groups.py); it must equal ``from_values(trace_poly_values,
+    ...)``.
+
+    mesh: a parallel.mesh.Mesh runs the whole pipeline distributed over
+    its ranks (parallel/stark_prover.py), on the rank's mesh.device, and
+    returns a byte-identical proof; every rank calls prove with the same
+    arguments.
+    """
+    if mesh is not None:
+        if trace_commitment is not None:
+            raise ValueError("precomputed commitments are single-device")
+        from ..parallel.stark_prover import prove_sharded
+        return prove_sharded(stark, config, trace_poly_values, public_inputs,
+                             mesh, timing)
     device = resolve_device(device)
     permutation = permutation_for(config.hasher)
     trace_poly_values = GF(trace_poly_values.v.to(device))
@@ -49,9 +67,11 @@ def prove(stark: Stark, config: StarkConfig, trace_poly_values: GF,
     if timing is None:
         timing = TimingTree("prove", device)
 
-    with timing.scope("trace commitment (LDE + Merkle)"):
-        trace_commitment = PolynomialBatch.from_values(
-            trace_poly_values, rate_bits, False, cap_height, config.hasher)
+    if trace_commitment is None:
+        with timing.scope("trace commitment (LDE + Merkle)"):
+            trace_commitment = PolynomialBatch.from_values(
+                trace_poly_values, rate_bits, False, cap_height,
+                config.hasher)
     challenger = Challenger(permutation)
     challenger.observe_cap(trace_commitment.merkle_tree.cap)
 

@@ -54,6 +54,13 @@ RECURSION_SLICE_MODULES = [
     "recursion.conditional", "recursion.cyclic", "fri.recursive_verifier",
     "models.bench_recursion", "stark.recursive_verifier",
     "stark.multi_recursive", "stark.staged", "zkevm.aggregation"]
+# the modules of the distributed prover and the last host modules
+PARALLEL_SLICE_MODULES = [
+    "plonk.gates.testing", "hash.path_compression", "fri.compression",
+    "plonk.compression", "field.towers", "parallel", "parallel.distributed",
+    "parallel.mesh", "parallel.prover", "parallel.fri",
+    "parallel.stark_prover", "parallel.plonk_prover", "parallel.multi_prover",
+    "parallel.groups"]
 
 
 def fib_pis(stark, x0, x1):
@@ -131,7 +138,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m == 'plonky2_tpu' "
         "or m.startswith('plonky2_tpu.')]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES + RECURSION_SLICE_MODULES!r} "
+        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES + RECURSION_SLICE_MODULES + PARALLEL_SLICE_MODULES!r} "
         "if 'plonky2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules "
@@ -141,6 +148,26 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_port_has_every_module_of_the_jax_package():
+    """Every module of plonky2_tpu/ outside ops/ (the Pallas kernels, whose
+    counterparts are csrc/) has a module of the same path in
+    plonky2_tpu_torch/; walks both trees by file name, importing neither."""
+    def modules(pkg):
+        root = os.path.join(ROOT, pkg)
+        out = set()
+        for dirpath, _, files in os.walk(root):
+            rel = os.path.relpath(dirpath, root)
+            if rel.split(os.sep)[0] in ("ops", "__pycache__", "_build"):
+                continue
+            for f in files:
+                if f.endswith(".py"):
+                    out.add(os.path.normpath(os.path.join(rel, f)))
+        return out
+    jax_modules = modules("plonky2_tpu")
+    assert "parallel/groups.py" in jax_modules
+    assert not jax_modules - modules("plonky2_tpu_torch")
 
 
 def test_chip_smoke_fails_without_cuda():
