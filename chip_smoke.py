@@ -30,15 +30,15 @@ Phases, one line each:
      standard_recursion_zk_config verifies;
   8. small multi-table proofs (models/multi_table.py: the three-table CTL
      demo and Logic + Memory + a bus table) under standard_fast_config and
-     under the keccak config, each proved on cuda (and the CTL demo under
-     the first also on cpu with equal multi_proof_to_bytes), verified, and
-     rejected with a tampered CTL Z;
+     under the keccak config, each proved on cuda (and, under the first,
+     on cpu with equal multi_proof_to_bytes), verified, and rejected with
+     a tampered CTL Z;
   9. a two-LUT lookup plonk circuit and an m = 2 matmul circuit under
      standard_keccak_config, each proved on cuda and on cpu with equal
      proof bytes and verified;
  10. the recursion slice's small cases on cuda, each proved and verified:
-     a 4-query wrap of the reference tests' x^2 + y + 42 proof, a
-     two-step cyclic IVC, the wrap of a 2^5-row
+     a 4-query wrap of the reference tests' x^2 + y + 42 proof (also on
+     cpu, equal bytes), a two-step cyclic IVC, the wrap of a 2^5-row
      Fibonacci STARK proof, the staged per-table wrappers and root of the
      three-table CTL demo, the aggregation root, a leaf aggregation and a
      first block of a two-table demo through a to_bytes /
@@ -81,10 +81,12 @@ Phases, one line each:
      single-device LDE and leaf hashes; the 2^20-row STARK (cold, warm,
      profiled) and the m = 64 matmul circuit (read from a checkpoint of
      phase 13's build; cold, warm) proved with mesh= give the single-device
-     proof bytes of phases 11 and 13, and verify; the three-table CTL demo proved sharded and through two
-     device groups, and a pipelined stream of three 2^10-row STARKs over
-     the two groups, give the single-device bytes; all_processes_equal
-     holds on every proof's bytes.  The line gives the backend, world size,
+     proof bytes of phases 11 and 13, and verify; a small circuit without
+     a witness seed whose gates hold a random nonce proves with mesh= and
+     verifies (every rank commits one witness); the three-table CTL demo
+     proved sharded and through two device groups, and a pipelined stream
+     of three 2^10-row STARKs over the two groups, give the single-device
+     bytes; all_processes_equal holds on every proof's bytes.  The line gives the backend, world size,
      cards, ranks per card, collective bytes per prove, each check's
      seconds, the warm sharded and single-device prove seconds, and each
      rank's device idle share in the profiled STARK prove (under NCCL
@@ -523,11 +525,10 @@ def phase_small_plonk() -> None:
 def phase_small_multi(devices=("cuda", "cpu")) -> None:
     """The three-table CTL demo and the Logic + Memory + bus demo
     (models/multi_table.py) under the Poseidon and the keccak configs:
-    proved on cuda, and the CTL demo under the Poseidon config also on cpu
-    with equal multi_proof_to_bytes (the other cpu twins were cut to keep
-    the run inside its time; tests/test_torch_multi.py holds both demos'
-    and both hashers' bytes against the JAX package on the CPU), accepted
-    by the verifier,
+    proved on cuda, and under the Poseidon config also on cpu with equal
+    multi_proof_to_bytes (the keccak config's cpu twins were cut to keep
+    the run inside its time; tests/test_torch_multi.py holds both hashers'
+    bytes against the JAX package on the CPU), accepted by the verifier,
     and rejected once the looked table's final CTL product is tampered
     with."""
     from plonky2_tpu_torch.field import gl64
@@ -542,8 +543,7 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
         for hasher in ("poseidon", "keccak"):
             starks, ctls, traces = demo()
             config = StarkConfig(hasher=hasher)
-            twins = devices if (name, hasher) == ("ctl_demo", "poseidon") \
-                else devices[:1]
+            twins = devices if hasher == "poseidon" else devices[:1]
             proofs = [prove_multi_table(starks, ctls, config, traces,
                                         device=d) for d in twins]
             data = [multi_proof_to_bytes(p, hasher) for p in proofs]
@@ -561,8 +561,7 @@ def phase_small_multi(devices=("cuda", "cpu")) -> None:
             else:
                 fail(f"{name}: a tampered CTL Z was accepted under {hasher}")
             sizes[f"{name}/{hasher}"] = len(data[0])
-    line("small_multi", proof_bytes=sizes,
-         cuda_equals_cpu="ctl_demo/poseidon",
+    line("small_multi", proof_bytes=sizes, cuda_equals_cpu="poseidon",
          verified=True, tampered_ctl_z_rejected=True)
 
 
@@ -1002,10 +1001,8 @@ def phase_recursion(kernels: list, required: list):
 
 def phase_small_recursion() -> None:
     """The recursion slice's small cases on cuda, each proved and verified:
-    the 4-query wrap (the reference tests' x^2 + y + 42 inner circuit; its
-    cpu twin was cut to keep the run inside its time, and
-    tests/test_torch_recursion.py proves it on the CPU); a two-step cyclic
-    IVC; the wrap of a
+    the 4-query wrap (the reference tests' x^2 + y + 42 inner circuit),
+    also on cpu with equal proof bytes; a two-step cyclic IVC; the wrap of a
     2^5-row Fibonacci STARK proof; the staged per-table wrappers and root of
     the three-table CTL demo; the aggregation root, a leaf aggregation and
     a first block of the two-table demo through a to_bytes /
@@ -1017,17 +1014,23 @@ def phase_small_recursion() -> None:
     from plonky2_tpu_torch.utils.serialization import proof_with_pis_to_bytes
     config = recursion_config(4, 8)
     t0 = time.perf_counter()
-    inner, pw = small_inner(config, "cuda")
-    inner.prover_only.schedule.rng_seed = 1
-    inner_proof = inner.prove(pw)
-    outer, pt, vdt = build_wrapper(config, inner.common, "cuda")
-    outer.prover_only.schedule.rng_seed = 1
-    proof = outer.prove(wrapper_witness(pt, vdt, inner_proof,
-                                        inner.verifier_only))
-    outer.verify(proof)
-    wrap = proof_with_pis_to_bytes(proof)
+    out = {}
+    for device in ("cuda", "cpu"):
+        inner, pw = small_inner(config, device)
+        inner.prover_only.schedule.rng_seed = 1
+        inner_proof = inner.prove(pw)
+        outer, pt, vdt = build_wrapper(config, inner.common, device)
+        outer.prover_only.schedule.rng_seed = 1
+        out[device] = outer.prove(wrapper_witness(pt, vdt, inner_proof,
+                                                  inner.verifier_only))
+        if device == "cuda":
+            outer.verify(out[device])
+    wrap = proof_with_pis_to_bytes(out["cuda"])
+    if wrap != proof_with_pis_to_bytes(out["cpu"]):
+        fail("4-query wrapper proof bytes differ between cuda and cpu")
     line("small_wrap", degree=outer.common.degree(), proof_bytes=len(wrap),
-         verified=True, seconds=time.perf_counter() - t0)
+         cuda_equals_cpu=True, verified=True,
+         seconds=time.perf_counter() - t0)
     for name, case in (("small_cyclic", small_cyclic),
                        ("small_stark_wrap", small_stark_wrap),
                        ("small_staged", small_staged),
@@ -1314,6 +1317,10 @@ def sharded_rank(mesh, refs_path: str) -> dict:
                                                    pipeline_prove_stream)
     from plonky2_tpu_torch.parallel.multi_prover import \
         prove_multi_table_sharded
+    from plonky2_tpu_torch.plonk.builder import CircuitBuilder
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.gates.base import GeneratorSpec
+    from plonky2_tpu_torch.plonk.witness import PartialWitness
     from plonky2_tpu_torch.stark.config import StarkConfig
     from plonky2_tpu_torch.stark.multi import prove_multi_table
     from plonky2_tpu_torch.stark.prover import prove
@@ -1399,6 +1406,23 @@ def sharded_rank(mesh, refs_path: str) -> dict:
     plonk_bytes = proof_with_pis_to_bytes(plonk_proof)
     checks["plonk_bytes_equal_single_device"] = plonk_bytes == refs["plonk"]
     checks["plonk_repeat_equal"] = cold == plonk_bytes
+
+    # a circuit without a witness seed whose gates hold a random nonce r
+    # (a * b * r + r): its sharded proof verifies only if the ranks agree
+    # on r
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    ta, tb, tr = builder.add_virtual_targets(3)
+    builder.add_simple_generator(GeneratorSpec("random", deps=[], outs=[tr]))
+    tc = builder.mul(ta, tb)
+    builder.add(builder.mul(tc, tr), tr)
+    builder.register_public_inputs([ta, tb, tc])
+    nonce = builder.build(dev)
+    npw = PartialWitness()
+    npw.set_target(ta, 3)
+    npw.set_target(tb, 5)
+    nonce_proof = timed("plonk_unseeded", lambda: nonce.prove(npw, mesh=mesh))
+    nonce.verify(nonce_proof)
+    checks["plonk_unseeded_verified"] = True
 
     # models/multi_table.py: sharded, and through two device groups
     starks, ctls, traces = ctl_demo()

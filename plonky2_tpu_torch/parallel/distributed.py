@@ -12,14 +12,16 @@ ranks share a card.  This module wraps exactly that:
   WORLD_SIZE / RANK, as torchrun sets them); a 1-process world with nothing
   configured is a no-op, so the same prover script runs unchanged on one
   card or many.
-* ``global_mesh(...)``: a Mesh over every rank.
-* ``host_local_to_global(...)``: the rank's local block of a sharded
-  value, placed on its device (no rank materialises the whole matrix).
-* ``replicated_from_host(...)``: rank 0's host value on every rank.
+* ``global_mesh(...)``: a Mesh over every rank (``mesh.make_mesh``).
 * ``all_processes_equal(...)``: a transcript-divergence tripwire.
 * ``spawn_world(...)``: run one function on a fresh world of processes
   (start method ``spawn``: CUDA cannot fork), return every rank's result,
   and raise if any rank raises.
+
+The JAX package's other host-to-mesh helpers need no function here: a
+sharded value is the rank's local block, so its ``host_local_to_global``
+is ``GF.from_u64(block, mesh.device)``, and its ``replicated_from_host``
+is ``mesh.broadcast`` from rank 0.
 
 Transcript discipline: the host-side Challenger runs on every rank, and
 only ever consumes Merkle caps and opening values that are replicated
@@ -34,7 +36,6 @@ import hashlib
 import os
 import pickle
 import shutil
-import socket
 import tempfile
 import time
 import traceback
@@ -44,8 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..field.goldilocks import GF
-from .mesh import Mesh, broadcast, make_mesh, pmax
+from .mesh import Mesh, make_mesh, pmax
 
 DEFAULT_TIMEOUT_S = 900
 
@@ -86,25 +86,7 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def global_mesh(device=None) -> Mesh:
-    """A 1-D mesh over every rank (identical on all of them)."""
-    return make_mesh(device)
-
-
-def process_count() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
-
-
-def host_local_to_global(local_np, mesh: Mesh) -> GF:
-    """The rank's local block of a sharded value (host u64, this rank's
-    contiguous slice along the sharded axis), placed on its device."""
-    return GF.from_u64(local_np, mesh.device)
-
-
-def replicated_from_host(value_np, mesh: Mesh) -> GF:
-    """Rank 0's host array on every rank's device."""
-    x = GF.from_u64(value_np, mesh.device)
-    return GF(broadcast(x.v, mesh, src=0))
+global_mesh = make_mesh
 
 
 def all_processes_equal(value_np, mesh: Mesh | None = None) -> bool:
@@ -122,12 +104,6 @@ def all_processes_equal(value_np, mesh: Mesh | None = None) -> bool:
 
 
 # -- launcher -------------------------------------------------------------------
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
 
 def _rank_main(rank: int, fn, world_size: int, backend: str, devices: list,
                init_method: str, out_dir: str, timeout_s: float,
@@ -196,7 +172,8 @@ def spawn_world(fn, world_size: int, backend: str | None = None,
             len(set(devices)) == world_size
         backend = "nccl" if own else "gloo"
     out_dir = tempfile.mkdtemp(prefix="spawn_world_")
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    # a file rendezvous in the world's own directory: no port to race for
+    init_method = "file://" + os.path.join(out_dir, "rendezvous")
     try:
         ctx = mp.start_processes(
             _rank_main, args=(fn, world_size, backend, devices, init_method,

@@ -10,10 +10,13 @@ byte-identical to the single-device plonk/prover.py prove.
 
 Every rank runs it with the same inputs: the witness schedule and the
 challenger run on every rank (host work, replicated), the device work is
-sharded.  Byte identity: every proof u64 is canonicalised at the boundary
-and Poseidon digests depend on field values only, so exact re-bracketing
-(per-rank partials, halo exchanges, all_to_all layouts) cannot change a
-byte.
+sharded.  The witness's random wires (the PI gate's unused wires) come from
+the schedule's seed, or, for a schedule without one, from a seed that mesh
+rank 0 draws afresh for each proof and broadcasts, so every rank commits
+the same witness.  Byte identity: every proof u64 is canonicalised at the
+boundary and Poseidon digests depend on field values only, so exact
+re-bracketing (per-rank partials, halo exchanges, all_to_all layouts)
+cannot change a byte.
 
 Sharding per phase:
   * constants/sigmas oracle: re-committed once per (circuit, mesh) as a
@@ -38,7 +41,10 @@ single-device only, as in the JAX package; the mesh path raises for both.
 
 from __future__ import annotations
 
+import secrets
+
 import numpy as np
+import torch
 
 from ..field import gl64
 from ..field.extension import GF2
@@ -51,7 +57,7 @@ from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 from ..plonk.prover import _all_partial_products_and_zs, _in_subgroup
 from ..plonk.vanishing import eval_vanishing_poly
 from ..utils.timing import TimingTree
-from .mesh import Mesh
+from .mesh import Mesh, broadcast
 from .prover import _coset_block, _next_with_halo
 from .stark_prover import (sharded_batch_commit, sharded_prove_openings,
                            sharded_quotient_chunks)
@@ -72,6 +78,15 @@ def _sharded_constants_sigmas(prover_data, common, step: int, mesh: Mesh):
             common.config.fri_config.cap_height, mesh, from_coeffs=True,
             quotient_step=step)
     return cache[key]
+
+
+def _witness_seed(schedule, mesh: Mesh) -> int:
+    """The schedule's seed, else one drawn on mesh rank 0 and broadcast."""
+    if schedule.rng_seed is not None:
+        return schedule.rng_seed
+    seed = torch.tensor([secrets.randbits(63)], dtype=torch.int64,
+                        device=mesh.device)
+    return int(broadcast(seed, mesh)[0])
 
 
 def _sharded_quotient_values(common, cs_blk: GF, wires_blk: GF, pps_blk: GF,
@@ -127,7 +142,8 @@ def prove_sharded(prover_data, common, inputs, mesh: Mesh,
 
     # 1. witness generation (host, leveled batches; on every rank)
     with timing.scope("generate witness"):
-        wires_matrix, all_values = prover_data.schedule.generate(inputs)
+        wires_matrix, all_values = prover_data.schedule.generate(
+            inputs, _witness_seed(prover_data.schedule, mesh))
     with timing.scope("hash public inputs"):
         public_inputs = gl64.to_canonical(prover_data.schedule.values_of(
             all_values, prover_data.public_inputs))

@@ -192,14 +192,17 @@ class WitnessSchedule:
             groups_by_level[lv] for lv in sorted(groups_by_level)]
 
     # ------------------------------------------------------------------
-    def generate(self, pw: PartialWitness) -> np.ndarray:
-        """Run all generators; returns the (num_wires, num_rows) wire matrix."""
+    def generate(self, pw: PartialWitness,
+                 rng_seed: int | None = None) -> np.ndarray:
+        """Run all generators; returns the (num_wires, num_rows) wire matrix.
+        rng_seed, when given, replaces the schedule's own seed."""
         values = np.zeros(self.total, dtype=np.uint64)
         parents = self.parents
         for t, v in pw.entries.items():
             values[parents[self._dense(t)]] = np.uint64(v)
 
-        rng = np.random.default_rng(self.rng_seed)
+        rng = np.random.default_rng(
+            self.rng_seed if rng_seed is None else rng_seed)
         for groups in self.levels:
             for g in groups:
                 self._exec_group(g, values, rng)

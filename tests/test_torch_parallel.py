@@ -37,16 +37,15 @@ from plonky2_tpu_torch.models import matrix_mul as mm
 from plonky2_tpu_torch.models.multi_table import ctl_demo
 from plonky2_tpu_torch.parallel import mesh as M
 from plonky2_tpu_torch.parallel.distributed import (all_processes_equal,
-                                                    host_local_to_global,
-                                                    initialize,
-                                                    process_count,
-                                                    replicated_from_host,
-                                                    spawn_world)
+                                                    initialize, spawn_world)
 from plonky2_tpu_torch.parallel.groups import (device_groups,
                                                pipeline_prove_stream)
 from plonky2_tpu_torch.parallel.multi_prover import prove_multi_table_sharded
 from plonky2_tpu_torch.parallel.prover import sharded_commitment
+from plonky2_tpu_torch.plonk.builder import CircuitBuilder
 from plonky2_tpu_torch.plonk.config import CircuitConfig
+from plonky2_tpu_torch.plonk.gates.base import GeneratorSpec
+from plonky2_tpu_torch.plonk.witness import PartialWitness
 from plonky2_tpu_torch.stark.config import StarkConfig
 from plonky2_tpu_torch.stark.fibonacci import FibonacciStark
 from plonky2_tpu_torch.stark.multi import prove_multi_table, verify_multi_table
@@ -96,6 +95,25 @@ def matmul_case(device):
     return data, mm.matrix_mul_witness(at, bt, a, b)
 
 
+def nonce_case(device):
+    """A circuit built the default way (no witness seed) whose witness holds
+    a fresh random nonce r, drawn at witness generation, in the wires of the
+    gates of a * b * r + r: the proof is valid only if every rank commits
+    the same r."""
+    builder = CircuitBuilder(FAST)
+    a, b, r = builder.add_virtual_targets(3)
+    builder.add_simple_generator(GeneratorSpec("random", deps=[], outs=[r]))
+    c = builder.mul(a, b)
+    builder.add(builder.mul(c, r), r)
+    builder.register_public_inputs([a, b, c])
+    data = builder.build(device)
+    assert data.prover_only.schedule.rng_seed is None
+    pw = PartialWitness()
+    pw.set_target(a, 3)
+    pw.set_target(b, 5)
+    return data, pw
+
+
 def stream_case():
     """tests/test_groups.py's stream of three STARKs (at 2^5 rows)."""
     return [fib(FibonacciStark, 1 << 5, a, b) for a, b in [(0, 1), (2, 5), (3, 7)]]
@@ -139,11 +157,11 @@ def world_checks(mesh):
     out["roll_left"] = M.roll_left(torch.arange(4) + 4 * mesh.rank, 3,
                                    mesh).tolist()
     out["psum"] = int(M.psum(torch.tensor([mesh.rank + 1]), mesh)[0])
-    out["replicated"] = replicated_from_host(
-        np.array([7 + mesh.rank], np.uint64), mesh).to_u64().tolist()
-    local = host_local_to_global(np.array([mesh.rank], np.uint64), mesh)
+    out["replicated"] = GF(M.broadcast(GF.from_u64(
+        np.array([7 + mesh.rank], np.uint64), dev).v, mesh)).to_u64().tolist()
+    local = GF.from_u64(np.array([mesh.rank], np.uint64), dev)
     out["host_local"] = (str(local.device), local.to_u64().tolist(),
-                         process_count())
+                         torch.distributed.get_world_size())
 
     stark, trace, pis = fib(FibonacciStark, 1 << 5)
     out["stark"] = stark_proof_to_bytes(prove(
@@ -153,6 +171,8 @@ def world_checks(mesh):
         stark, LIGHT, trace, pis, mesh=mesh))
     data, pw = matmul_case(dev)
     out["plonk"] = proof_with_pis_to_bytes(data.prove(pw, mesh=mesh))
+    data, pw = nonce_case(dev)
+    out["plonk_unseeded"] = proof_with_pis_to_bytes(data.prove(pw, mesh=mesh))
     starks, ctls, traces = ctl_demo()
     out["multi"] = multi_proof_to_bytes(prove_multi_table_sharded(
         starks, ctls, LIGHT, traces, mesh=mesh))
@@ -330,6 +350,14 @@ def test_sharded_plonk_matches_single_device(world):
     data.verify(proof_with_pis_from_bytes(blob, data.common))
 
 
+def test_sharded_plonk_unseeded_witness_verifies(world):
+    """Without a witness seed the ranks still prove one witness: the nonce
+    circuit's sharded proof verifies."""
+    blob = both(world, "plonk_unseeded")
+    data, _ = nonce_case("cpu")
+    data.verify(proof_with_pis_from_bytes(blob, data.common))
+
+
 def test_multi_table_sharded_matches_single_device(world):
     results, _ = world
     blob = both(world, "multi")
@@ -384,7 +412,6 @@ def test_initialize_without_a_world_is_a_noop(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     initialize()
     assert not torch.distributed.is_initialized()
-    assert process_count() == 1
 
 
 def test_collectives_only_in_mesh_and_distributed():
