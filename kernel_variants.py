@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time design variants of the port's CUDA kernels on one GPU.
 
-Run from the repository root, with no arguments:
+Run from the repository root, with no arguments (both sources) or with
+the sources whose variants to time:
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [poseidon.cu] [ntt.cu]
 
 Each variant is a text substitution in a committed source of
 plonky2_tpu_torch/csrc (and, where the plan changes, in field/ntt.py's
@@ -62,6 +63,75 @@ RADIX_PASSES = '''    while (log_n - log_ns >= 3) { radix_pass<8, 3>(sh, p, log_
 '''
 
 
+# poseidon.cu's lane-group partial rounds with the W_HATS dot product
+# summed one round ahead: element 0 on every lane, so that no shuffle sits
+# in the S-box's chain (D_{r+1} = E_r + s0 W_NEXT_DOT_V)
+LANES_DOT_ONE_ROUND_AHEAD = r'''// sum_i W_HATS[r+1][i] VS[r][i] over the 11 columns, the same for every
+// r < PARTIAL - 1 (hash/poseidon_constants.py; tests/test_torch_poseidon.py
+// checks it).
+constexpr uint64_t W_NEXT_DOT_V = 5017;
+
+// (k a + b) mod p for a small constant k (k 2^32 + 2^32 < 2^43): products of
+// the 32-bit halves, one reduce_halves.
+__device__ __forceinline__ uint64_t small_mul_add(uint64_t a, uint64_t k,
+                                                  uint64_t b) {
+  return gl::reduce_halves(k * (uint32_t)a + (uint32_t)b,
+                           k * (uint32_t)(a >> 32) + (b >> 32));
+}
+
+// The sum over the group's lanes, on every lane: a 4-step xor butterfly.
+__device__ __forceinline__ uint64_t group_sum(uint64_t v) {
+#pragma unroll
+  for (int m = 1; m < GROUP; m <<= 1) v = gl::add(v, from_lane_xor(v, m));
+  return v;
+}
+
+// The fast partial rounds (partial_rounds' schedule) on a group.  Every
+// lane holds state element 0 (x0, the same on all lanes) and lane l in
+// 1..11 element l (xi); lm is the lane's column of the (WIDTH - 1)-wide
+// tables (lanes 0 and 12-15 read a column whose value they discard).
+// Round r: s0 = sbox(x0) + RC; x0' = 25 s0 + D_r; xi' = xi + s0 VS[r][lm],
+// with D_r = sum_i s[i] W_HATS[r][i-1].  D_{r+1} = E_r + s0 W_NEXT_DOT_V,
+// where E_r = sum_i s[i] W_HATS[r+1][i-1] over the state before the update:
+// E_r's products and group sum run beside the S-box, and a round's chain is
+// the S-box and one small-constant multiply-add, with no shuffle in it.
+__device__ __forceinline__ uint64_t partial_rounds_lanes(uint64_t x, int l,
+                                                         int lm,
+                                                         const LaneConsts& c) {
+  const bool dot_lane = l >= 1 && l < WIDTH;
+  x = gl::add(x, c.first_rc[l < WIDTH ? l : 0]);
+  // mds_partial_layer_init: element 0 passes, lane c takes
+  // sum_r s[r] INIT[r-1][c-1]
+  Acc acc;
+#pragma unroll
+  for (int r = 1; r < WIDTH; r++)
+    acc.add_product(from_lane(x, r), c.init[(r - 1) * (WIDTH - 1) + lm]);
+  uint64_t xi = acc.reduce();
+  uint64_t x0 = from_lane(x, 0);
+  uint64_t d = group_sum(dot_lane ? gl::mul(xi, c.w_hats[lm]) : 0);
+#pragma unroll 1
+  for (int r = 0; r < PARTIAL; r++) {
+    const uint64_t s0 = gl::add(sbox(x0), PARTIAL_RC[r]);
+    uint64_t e = 0;
+    if (r + 1 < PARTIAL)
+      e = group_sum(dot_lane ? gl::mul(xi, c.w_hats[(r + 1) * (WIDTH - 1) + lm])
+                             : 0);
+    x0 = small_mul_add(s0, MDS00, d);
+    xi = gl::mul_add(s0, c.vs[r * (WIDTH - 1) + lm], xi);
+    d = gl::mul_add(s0, W_NEXT_DOT_V, e);
+  }
+  return l == 0 ? x0 : xi;
+}
+
+'''
+
+
+def lanes_dot_one_round_ahead(src: str) -> str:
+    start = src.index("// The fast partial rounds on a group (partial_rounds' schedule).")
+    end = src.index("__device__ __forceinline__ uint64_t permute_lanes(")
+    return src[:start] + LANES_DOT_ONE_ROUND_AHEAD + src[end:]
+
+
 def compare_select(gl: str) -> str:
     start = gl.index("// Carries and borrows")
     end = gl.index("// The full 128-bit product")
@@ -85,6 +155,13 @@ POSEIDON_VARIANTS = {
     "partial_rounds_unrolled": (lambda s: sub(
         s, "#pragma unroll 1\n  for (int r = 0; r < PARTIAL",
         "#pragma unroll\n  for (int r = 0; r < PARTIAL"), None),
+    "sponge_min_blocks_8": (lambda s: sub(s, "constexpr int SPONGE_MIN_BLOCKS = 6;",
+                                          "constexpr int SPONGE_MIN_BLOCKS = 8;"),
+                            None),
+    "sponge_min_blocks_4": (lambda s: sub(s, "constexpr int SPONGE_MIN_BLOCKS = 6;",
+                                          "constexpr int SPONGE_MIN_BLOCKS = 4;"),
+                            None),
+    "lanes_dot_one_round_ahead": (lanes_dot_one_round_ahead, None),
 }
 NTT_VARIANTS = {
     "committed": (lambda s: s, None, {}, True),
@@ -139,10 +216,7 @@ def main() -> int:
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    from plonky2_tpu_torch.field import ntt
-    from plonky2_tpu_torch.field.goldilocks import GF, canonical
-    from plonky2_tpu_torch.hash import hashing, poseidon
+    from plonky2_tpu_torch.field.goldilocks import canonical
     from plonky2_tpu_torch.utils import cuda
 
     card = subprocess.run(
@@ -163,20 +237,53 @@ def main() -> int:
         for k in kernels:
             k._fn = None
 
+    sources = sys.argv[1:] or ["poseidon.cu", "ntt.cu"]
+    if "poseidon.cu" in sources:
+        time_poseidon_variants(card, out_dir, rand, same, bind)
+    if "ntt.cu" in sources:
+        time_ntt_variants(card, out_dir, rand, same, bind)
+    return 0
+
+
+def time_poseidon_variants(card, out_dir, rand, same, bind) -> None:
+    import chip_smoke as cs
+    from plonky2_tpu_torch.hash import hashing, poseidon
     states17, states20 = rand((1 << 17, 12)), rand((1 << 20, 12))
     rows = rand((1 << 18, 135))
+    cols = rows.transpose(0, 1).contiguous()
+    keccak = rand((1 << 10, 2481))
+    keccak_cols = keccak.transpose(0, 1).contiguous()
     want17 = poseidon.permute_torch(states17)
     want_rows = hashing.hash_no_pad_torch(rows)
+    want_cols = hashing.hash_cols_torch(cols)
+    want_keccak = hashing.hash_no_pad_torch(keccak)
+    cases = {
+        "sponge rows (2^18, 135)": (lambda: hashing.hash_rows_cuda(rows), want_rows),
+        "sponge cols (2^18, 135)": (lambda: hashing.hash_cols_cuda(cols), want_cols),
+        "sponge cols (2^10, 2481), 16 lanes": (
+            lambda: hashing.hash_cols_cuda(keccak_cols, leaf_order=False,
+                                           group=hashing.SPONGE_GROUP),
+            want_keccak),
+        "sponge rows (1, 2481), 16 lanes": (
+            lambda: hashing.hash_rows_cuda(keccak[:1], group=hashing.SPONGE_GROUP),
+            want_keccak[:1])}
     for name, lib in build(POSEIDON_VARIANTS, "poseidon.cu", out_dir).items():
-        bind("poseidon.cu", lib, [poseidon.POSEIDON, hashing.HASH_ROWS])
+        bind("poseidon.cu", lib, [poseidon.POSEIDON, hashing.HASH_ROWS,
+                                  hashing.HASH_COLS])
         res = {"permute 2^17": [cs.cuda_ms(lambda: poseidon.permute_cuda(states17), 20),
                                 same(poseidon.permute_cuda(states17), want17)],
                "permute 2^20": [cs.cuda_ms(lambda: poseidon.permute_cuda(states20), 10),
-                                None],
-               "sponge (2^18, 135)": [cs.cuda_ms(lambda: hashing.hash_rows_cuda(rows), 5),
-                                      same(hashing.hash_rows_cuda(rows), want_rows)]}
+                                None]}
+        for case, (fn, want) in cases.items():
+            res[case] = [cs.cuda_ms(fn, 5), same(fn(), want)]
         print(json.dumps({"card": card, "source": "poseidon.cu", "variant": name,
                           "ms_and_exact": res}), flush=True)
+
+
+def time_ntt_variants(card, out_dir, rand, same, bind) -> None:
+    import chip_smoke as cs
+    from plonky2_tpu_torch.field import ntt
+    from plonky2_tpu_torch.field.goldilocks import GF
 
     cases = {"lde (135, 2^15, r=3)": (lambda x: ntt.lde_cuda(x, 3, 7),
                                       lambda x: ntt.lde_torch(x, 3, 7), (135, 15)),
@@ -205,7 +312,6 @@ def main() -> int:
                           "ms_and_exact": res}), flush=True)
     for key, value in committed.items():
         setattr(ntt, key, value)
-    return 0
 
 
 if __name__ == "__main__":

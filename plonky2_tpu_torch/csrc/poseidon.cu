@@ -1,6 +1,6 @@
 // Poseidon over Goldilocks, width 12, x^7 S-box: 4 full + 22 partial + 4
 // full rounds (reference plonky2/src/hash/poseidon.rs:574-636), and a
-// sponge that hashes whole leaf rows with it.
+// sponge that hashes whole Merkle leaves with it.
 //
 // Replaces the TPU kernel plonky2_tpu/ops/poseidon_pallas.py permute_cols
 // (_poseidon_kernel / _poseidon_kernel_mxu, round logic _rounds).  The TPU
@@ -30,18 +30,58 @@
 // this card the fast schedule leaves 8 of the 30 rounds with a full MDS,
 // 1,920 of the 6,272 multiplies.
 //
+// The sponge (hash/hashing.py hash_no_pad; the TPU package ran it as one
+// permute_cols launch per rate-8 chunk).  A leaf's permutations are a chain:
+// each absorbs the state the previous one left, so a leaf of L elements is
+// ceil(L / 8) dependent permutations whatever the card's throughput.  What
+// bounds it depends on the shape:
+//  - many short leaves (2^18 leaves of 135, the plonk wires): operations,
+//    2^18 x 17 permutations; one thread per leaf keeps the card full and
+//    issues the fewest instructions per permutation;
+//  - few long leaves (2^10 leaves of 2,481, the zkEVM KeccakStark trace):
+//    the chain of 311 permutations.  One thread per leaf is 8 blocks on 8
+//    of the 132 SMs, each thread one dependent instruction after another.
+//    So a group of GROUP = 16 lanes of one warp hashes one leaf: lane l < 12
+//    holds state element l.  A full round runs the 12 S-boxes at once and
+//    each lane gathers its MDS row's inputs with __shfl_sync; a partial
+//    round runs lane 0's S-box beside the other lanes' W_HATS products,
+//    sums those by a 4-step xor-shuffle butterfly, broadcasts lane 0's
+//    S-box output and makes the VS rank-1 update one multiply-add per lane.
+//    The chain per permutation is a fraction of one thread's, and 16 times
+//    as many warps run.  Lane-dependent constants sit in shared memory.
+//    (Summing the dot product one round ahead, so that no shuffle sits in
+//    the S-box's chain, ran 25 % slower: kernel_variants.py
+//    "lanes_dot_one_round_ahead".)
+//    Lanes 12-15 of a group compute values that no lane reads.
+// The wrapper picks the group size from the leaf count (hash/hashing.py
+// sponge_group: one thread per leaf where leaves alone fill the card).
+// Leaves are read where they lie: the row entry reads leaf j from row j of a
+// (leaves, len) array; the column entry reads leaf j from column j of a
+// (len, n) array, the layout in which the LDE leaves a committed batch, so
+// neighbouring threads (or groups) read neighbouring addresses and no
+// transposed copy of the LDE is made.  Each chunk's loads for the next
+// permutation are issued before the current one runs in the lane groups;
+// one thread per leaf loads each chunk as it absorbs it (a prefetched chunk
+// would take 16 more registers; untried).
+//
 // C interface (launches: kernel launches issued, 1 or 0 when there is no
-// work; each returns cudaGetLastError()):
+// work; each returns cudaGetLastError(); group is 1 or 16 lanes per leaf):
 //   poseidon_permute(in, out, n, launches, stream) permutes n contiguous
 //     states of 12 u64 from in into out (distinct buffers);
-//   poseidon_hash_rows(in, out, rows, len, num_outputs, launches, stream)
-//     hashes each of `rows` contiguous rows of `len` u64 with the
+//   poseidon_hash_rows(in, out, rows, len, num_outputs, group, launches,
+//     stream) hashes each of `rows` contiguous rows of `len` u64 with the
 //     overwrite-mode sponge (rate 8: each chunk of up to 8 elements
 //     replaces the first lanes of the state, then one permutation; no
 //     padding), as hash/hashing.py hash_no_pad does, and writes the first
 //     num_outputs (<= 8) lanes of each final state to out (rows,
 //     num_outputs).  The state stays in registers from the first chunk to
-//     the last.
+//     the last;
+//   poseidon_hash_cols(in, out, len, n, stride, num_outputs, leaf_order,
+//     group, launches, stream) hashes column j of the (len, n) array whose
+//     row e starts at in + e * stride, for each j < n, and writes its digest
+//     to row reverse_bits(j) of out (n, num_outputs) when leaf_order is 1
+//     (n a power of two: the Merkle leaf order of a committed LDE), or to
+//     row j when it is 0.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -57,6 +97,14 @@ constexpr int RATE = 8;
 // states fill the card in one wave, where 72-80 registers took two.
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 8;
+// 6 blocks (80 registers) for the sponge's one-thread-a-leaf kernels:
+// fewer spills, and 4-7 % faster at 2^18 leaves of 135 than 8
+// (kernel_variants.py "sponge_min_blocks_8").
+constexpr int SPONGE_MIN_BLOCKS = 6;
+// The sponge's lane groups: GROUP lanes of a warp per leaf, 8 leaves a block.
+constexpr int GROUP = 16;
+constexpr int GROUP_THREADS = 128;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // hash/poseidon_constants.py: FULL_RC holds ALL_ROUND_CONSTANTS of the
 // four first and four last rounds; the rest is the fast partial schedule
@@ -388,26 +436,229 @@ poseidon_kernel(const uint64_t* __restrict__ in,
   for (int j = 0; j < WIDTH; j++) out[i * WIDTH + j] = s[j];
 }
 
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-hash_rows_kernel(const uint64_t* __restrict__ in,
-                                 uint64_t* __restrict__ out, int64_t rows,
-                                 int64_t len, int num_outputs) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const uint64_t* row = in + i * len;
+// -- the sponge -------------------------------------------------------------
+
+// Leaf j of a sponge launch.  Rows: element e at in[j * stride + e].
+// Columns: element e at in[e * stride + j].  Its digest goes to row slot(j)
+// of out (leaves, num_outputs).
+struct Leaves {
+  const uint64_t* in;
+  uint64_t* out;
+  int64_t count, len, stride;
+  int num_outputs;
+  int log_order;  // log2(count) when digests go in leaf order, else -1
+
+  template <bool COLS>
+  __device__ __forceinline__ const uint64_t* leaf(int64_t j) const {
+    return in + (COLS ? j : j * stride);
+  }
+  template <bool COLS>
+  __device__ __forceinline__ int64_t step() const {
+    return COLS ? stride : 1;
+  }
+  __device__ __forceinline__ int64_t slot(int64_t j) const {
+    if (log_order <= 0) return j;
+    return (int64_t)(__brevll((unsigned long long)j) >> (64 - log_order));
+  }
+};
+
+// One thread per leaf, the whole state in registers.
+template <bool COLS>
+__device__ __forceinline__ void sponge_thread(const Leaves& L) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= L.count) return;
+  const uint64_t* leaf = L.leaf<COLS>(j);
+  const int64_t step = L.step<COLS>();
   uint64_t s[WIDTH];
 #pragma unroll
-  for (int j = 0; j < WIDTH; j++) s[j] = 0;
-  for (int64_t start = 0; start < len; start += RATE) {
-    const int64_t k = len - start;
+  for (int e = 0; e < WIDTH; e++) s[e] = 0;
+  for (int64_t start = 0; start < L.len; start += RATE) {
+    const int64_t k = L.len - start;
 #pragma unroll
-    for (int j = 0; j < RATE; j++)
-      if (j < k) s[j] = row[start + j];
+    for (int e = 0; e < RATE; e++)
+      if (e < k) s[e] = leaf[(start + e) * step];
     permute(s);
   }
+  const int64_t o = L.slot(j) * L.num_outputs;
 #pragma unroll
-  for (int j = 0; j < RATE; j++)
-    if (j < num_outputs) out[i * num_outputs + j] = s[j];
+  for (int e = 0; e < RATE; e++)
+    if (e < L.num_outputs) L.out[o + e] = s[e];
+}
+
+// The constants whose index depends on the lane, for the lane groups.
+struct LaneConsts {
+  uint64_t full_rc[2 * HALF_FULL * WIDTH];
+  uint64_t first_rc[WIDTH];
+  uint64_t init[(WIDTH - 1) * (WIDTH - 1)];
+  uint64_t vs[PARTIAL * (WIDTH - 1)];
+  uint64_t w_hats[PARTIAL * (WIDTH - 1)];
+};
+
+__device__ __forceinline__ void load_lane_consts(LaneConsts& c) {
+  for (int i = threadIdx.x; i < 2 * HALF_FULL * WIDTH; i += blockDim.x)
+    c.full_rc[i] = FULL_RC[i];
+  for (int i = threadIdx.x; i < WIDTH; i += blockDim.x) c.first_rc[i] = FIRST_RC[i];
+  for (int i = threadIdx.x; i < (WIDTH - 1) * (WIDTH - 1); i += blockDim.x)
+    c.init[i] = INIT[i];
+  for (int i = threadIdx.x; i < PARTIAL * (WIDTH - 1); i += blockDim.x) {
+    c.vs[i] = VS[i];
+    c.w_hats[i] = W_HATS[i];
+  }
+  __syncthreads();
+}
+
+// Lane src's value within this lane's group (src taken mod GROUP).
+__device__ __forceinline__ uint64_t from_lane(uint64_t v, int src) {
+  const uint32_t lo = __shfl_sync(FULL_MASK, (uint32_t)v, src, GROUP);
+  const uint32_t hi = __shfl_sync(FULL_MASK, (uint32_t)(v >> 32), src, GROUP);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+__device__ __forceinline__ uint64_t from_lane_xor(uint64_t v, int mask) {
+  const uint32_t lo = __shfl_xor_sync(FULL_MASK, (uint32_t)v, mask, GROUP);
+  const uint32_t hi = __shfl_xor_sync(FULL_MASK, (uint32_t)(v >> 32), mask, GROUP);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// A full round on a group: lane l < 12 holds state element l in x.  The
+// MDS row of lane l is sum_i CIRC[i] s[(l + i) % 12] (+ 8 s[0] on lane 0),
+// gathered from the other lanes on 32-bit halves as mds() sums them, in two
+// sums per half so that the adds do not form one chain.
+__device__ __forceinline__ uint64_t full_round_lanes(uint64_t x, int l,
+                                                     uint64_t rc) {
+  x = sbox(gl::add(x, rc));
+  const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  uint64_t cl[2] = {circ(0) * lo, 0}, ch[2] = {circ(0) * hi, 0};
+#pragma unroll
+  for (int i = 1; i < WIDTH; i++) {
+    const int src = l + i - (l + i >= WIDTH ? WIDTH : 0);
+    cl[i & 1] += circ(i) * __shfl_sync(FULL_MASK, lo, src, GROUP);
+    ch[i & 1] += circ(i) * __shfl_sync(FULL_MASK, hi, src, GROUP);
+  }
+  if (l == 0) {
+    cl[0] += 8ull * lo;
+    ch[0] += 8ull * hi;
+  }
+  return gl::reduce_halves(cl[0] + cl[1], ch[0] + ch[1]);
+}
+
+// The fast partial rounds on a group (partial_rounds' schedule).  lm is the
+// lane's column of the (WIDTH - 1)-wide tables (lane l >= 1 reads column
+// l - 1; lanes 0 and 12-15 read a column whose value they discard).
+__device__ __forceinline__ uint64_t partial_rounds_lanes(uint64_t x, int l,
+                                                         int lm,
+                                                         const LaneConsts& c) {
+  const bool dot_lane = l >= 1 && l < WIDTH;
+  x = gl::add(x, c.first_rc[l < WIDTH ? l : 0]);
+  {
+    // mds_partial_layer_init: lane 0 passes, lane c takes
+    // sum_r s[r] INIT[r-1][c-1]
+    Acc acc;
+#pragma unroll
+    for (int r = 1; r < WIDTH; r++)
+      acc.add_product(from_lane(x, r), c.init[(r - 1) * (WIDTH - 1) + lm]);
+    const uint64_t t = acc.reduce();
+    if (l != 0) x = t;
+  }
+#pragma unroll 1
+  for (int r = 0; r < PARTIAL; r++) {
+    // lane 0's S-box beside the other lanes' W_HATS products
+    const uint64_t s0 = gl::add(sbox(x), PARTIAL_RC[r]);
+    uint64_t p = dot_lane ? gl::mul(x, c.w_hats[r * (WIDTH - 1) + lm]) : 0;
+#pragma unroll
+    for (int m = 1; m < GROUP; m <<= 1) p = gl::add(p, from_lane_xor(p, m));
+    const uint64_t b = from_lane(s0, 0);
+    // lane 0: s0 MDS[0][0] + sum_i s[i] W_HATS[i-1]; lane i: s[i] + s0 VS[i-1]
+    x = gl::mul_add(b, l == 0 ? MDS00 : c.vs[r * (WIDTH - 1) + lm],
+                    l == 0 ? p : x);
+  }
+  return x;
+}
+
+__device__ __forceinline__ uint64_t permute_lanes(uint64_t x, int l,
+                                                  const LaneConsts& c) {
+  const int lc = l < WIDTH ? l : WIDTH - 1;
+  const int lm = l >= 1 && l < WIDTH ? l - 1 : 0;
+#pragma unroll 1
+  for (int r = 0; r < HALF_FULL; r++)
+    x = full_round_lanes(x, l, c.full_rc[r * WIDTH + lc]);
+  x = partial_rounds_lanes(x, l, lm, c);
+#pragma unroll 1
+  for (int r = HALF_FULL; r < 2 * HALF_FULL; r++)
+    x = full_round_lanes(x, l, c.full_rc[r * WIDTH + lc]);
+  return x;
+}
+
+// A group of GROUP lanes per leaf.  Every lane of the block runs the same
+// number of permutations (the leaves share one length), so the shuffles
+// see full warps: a group past the last leaf hashes the last leaf again
+// and writes nothing.
+template <bool COLS>
+__device__ __forceinline__ void sponge_group(const Leaves& L, LaneConsts& c) {
+  load_lane_consts(c);
+  const int l = threadIdx.x % GROUP;
+  const int64_t g = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / GROUP;
+  const bool live = g < L.count;
+  const int64_t j = live ? g : L.count - 1;
+  const uint64_t* leaf = L.leaf<COLS>(j);
+  const int64_t step = L.step<COLS>();
+  const bool absorbs = l < RATE;
+  uint64_t x = 0;
+  uint64_t next = absorbs && l < L.len ? leaf[l * step] : 0;
+  for (int64_t start = 0; start < L.len; start += RATE) {
+    if (absorbs && start + l < L.len) x = next;
+    // the next chunk's load, in flight during this permutation
+    const int64_t e = start + RATE + l;
+    if (absorbs && e < L.len) next = leaf[e * step];
+    x = permute_lanes(x, l, c);
+  }
+  if (live && l < L.num_outputs) L.out[L.slot(j) * L.num_outputs + l] = x;
+}
+
+// Four kernels, so that the profiler tells the entries and group sizes
+// apart.
+__global__ void __launch_bounds__(THREADS, SPONGE_MIN_BLOCKS)
+hash_rows_kernel(Leaves L) { sponge_thread<false>(L); }
+
+__global__ void __launch_bounds__(GROUP_THREADS)
+hash_rows_group_kernel(Leaves L) {
+  __shared__ LaneConsts c;
+  sponge_group<false>(L, c);
+}
+
+__global__ void __launch_bounds__(THREADS, SPONGE_MIN_BLOCKS)
+hash_cols_kernel(Leaves L) { sponge_thread<true>(L); }
+
+__global__ void __launch_bounds__(GROUP_THREADS)
+hash_cols_group_kernel(Leaves L) {
+  __shared__ LaneConsts c;
+  sponge_group<true>(L, c);
+}
+
+template <bool COLS>
+int launch_sponge(const Leaves& L, int group, int* launches,
+                  cudaStream_t stream) {
+  *launches = 0;
+  if (L.num_outputs < 0 || L.num_outputs > RATE || L.len < 0 || L.count < 0 ||
+      (group != 1 && group != GROUP))
+    return (int)cudaErrorInvalidValue;
+  if (L.count == 0 || L.num_outputs == 0) return (int)cudaGetLastError();
+  if (group == 1) {
+    const int64_t blocks = (L.count + THREADS - 1) / THREADS;
+    if (COLS)
+      hash_cols_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(L);
+    else
+      hash_rows_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(L);
+  } else {
+    const int64_t per_block = GROUP_THREADS / GROUP;
+    const int64_t blocks = (L.count + per_block - 1) / per_block;
+    if (COLS)
+      hash_cols_group_kernel<<<(unsigned)blocks, GROUP_THREADS, 0, stream>>>(L);
+    else
+      hash_rows_group_kernel<<<(unsigned)blocks, GROUP_THREADS, 0, stream>>>(L);
+  }
+  *launches = 1;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -425,16 +676,25 @@ extern "C" int poseidon_permute(const void* in, void* out, int64_t n,
 }
 
 extern "C" int poseidon_hash_rows(const void* in, void* out, int64_t rows,
-                                  int64_t len, int num_outputs, int* launches,
+                                  int64_t len, int num_outputs, int group,
+                                  int* launches, void* stream) {
+  const Leaves L{(const uint64_t*)in, (uint64_t*)out, rows, len, len,
+                 num_outputs, -1};
+  return launch_sponge<false>(L, group, launches, (cudaStream_t)stream);
+}
+
+extern "C" int poseidon_hash_cols(const void* in, void* out, int64_t len,
+                                  int64_t n, int64_t stride, int num_outputs,
+                                  int leaf_order, int group, int* launches,
                                   void* stream) {
   *launches = 0;
-  if (num_outputs < 0 || num_outputs > RATE || len < 0)
-    return (int)cudaErrorInvalidValue;
-  if (rows > 0 && num_outputs > 0) {
-    const int64_t blocks = (rows + THREADS - 1) / THREADS;
-    hash_rows_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)in, (uint64_t*)out, rows, len, num_outputs);
-    *launches = 1;
+  int log_order = -1;
+  if (leaf_order) {
+    if (n <= 0 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+    log_order = 63 - __builtin_clzll((unsigned long long)n);
   }
-  return (int)cudaGetLastError();
+  if (len > 0 && stride < n) return (int)cudaErrorInvalidValue;
+  const Leaves L{(const uint64_t*)in, (uint64_t*)out, n, len, stride,
+                 num_outputs, log_order};
+  return launch_sponge<true>(L, group, launches, (cudaStream_t)stream);
 }

@@ -1,11 +1,12 @@
 """PolynomialBatch: the batch FRI polynomial commitment (oracle).
 
 Twin of reference fri/oracle.rs:43-220.  Commit: iNTT of the value rows,
-coset LDE (the CUDA kernels on the card), transpose to row leaves (plus
-SALT_SIZE random columns when blinding), bit-reversal gather, and a
-Merkle tree: level-batched Poseidon on the device, or, under the keccak
-config, a keccak byte-digest tree hashed on the host
-(hash/keccak_tree.py) over the device LDE's leaf rows.
+coset LDE (the CUDA kernels on the card), plus SALT_SIZE random rows when
+blinding, and a Merkle tree whose leaf i is column reverse_bits(i) of that
+(k, N) array: level-batched Poseidon on the device, the leaves hashed where
+the LDE lies (MerkleTree.from_columns, no transposed copy), or, under the
+keccak config, a keccak byte-digest tree hashed on the host
+(hash/keccak_tree.py) over the LDE's leaf rows.
 ``prove_openings`` builds the FRI composition polynomial with alpha powers
 and divides (F(X) - F(z)) / (X - z) in the value domain over the coset
 (one batch inversion + coset iNTT) instead of the reference's sequential
@@ -80,6 +81,7 @@ class PolynomialBatch:
                     cap_height: int,
                     hasher: str = "poseidon") -> "PolynomialBatch":
         n = polynomials.shape[-1]
+        k = polynomials.shape[0]
         lde_values = ntt.lde(polynomials, rate_bits, shift=COSET_SHIFT)
         leaf_cols = lde_values
         if blinding:
@@ -92,14 +94,15 @@ class PolynomialBatch:
             salt = GF.from_u64(gl64.to_canonical(raw).reshape(
                 SALT_SIZE, n << rate_bits), polynomials.device)
             leaf_cols = GF.concatenate([lde_values, salt], axis=0)
-        # rows of the evaluation matrix become Merkle leaves, in bit-reversed
-        # order (reference fri/oracle.rs:81-100)
-        perm = reverse_index_bits_perm(n << rate_bits)
-        leaves = leaf_cols.transpose(1, 0).take(perm, axis=0)
+            lde_values = leaf_cols[:k]        # a view: one copy of the LDE
+        # columns of the evaluation matrix become Merkle leaves, in
+        # bit-reversed order (reference fri/oracle.rs:81-100)
         if hasher == "keccak":
-            tree = BytesMerkleTree(leaves, cap_height)
+            perm = reverse_index_bits_perm(n << rate_bits)
+            tree = BytesMerkleTree(leaf_cols.transpose(1, 0).take(perm, axis=0),
+                                   cap_height)
         else:
-            tree = MerkleTree(leaves, cap_height)
+            tree = MerkleTree.from_columns(leaf_cols, cap_height)
         return cls(polynomials, lde_values, tree, log2_strict(n), rate_bits,
                    blinding, hasher)
 

@@ -11,7 +11,14 @@ through it) sends a CUDA tensor to the fused sponge kernel
 csrc/poseidon.cu poseidon_hash_rows (``hash_rows_cuda``: one launch per
 batch of rows, the state in registers from the first chunk to the last)
 and a CPU tensor to the plain version ``hash_no_pad_torch``, one
-permutation per rate-8 chunk.
+permutation per rate-8 chunk.  ``hash_no_pad_cols`` (and
+``hash_or_noop_cols``) hash the columns of a (len, n) array, the layout in
+which the LDE leaves a committed batch, optionally writing the digests in
+Merkle leaf order (column reverse_bits(i) to row i): poseidon_hash_cols on
+the card (``hash_cols_cuda``), the transpose and the plain sponge on the
+CPU (``hash_cols_torch``).  Both kernels hash a leaf with one thread while
+the leaves alone fill the card and with a group of 16 lanes of a warp
+below that (``sponge_group``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ..field import gl64
 from ..field.goldilocks import GF
+from ..utils.bits import log2_strict, reverse_index_bits_perm
 from ..utils.cuda import CudaKernel, check_cuda_tensor
 from .poseidon import permute, permute_np, permute_torch
 
@@ -34,7 +42,23 @@ NUM_HASH_OUT_ELTS = 4
 
 HASH_ROWS = CudaKernel("poseidon.cu", "poseidon_hash_rows",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                        ctypes.c_int64, ctypes.c_int])
+                        ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+HASH_COLS = CudaKernel("poseidon.cu", "poseidon_hash_cols",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int])
+
+# Lanes per leaf in the sponge kernels: one thread per leaf from
+# GROUP_BELOW_LEAVES leaves up, where the leaves alone fill the card, and a
+# group of SPONGE_GROUP lanes below (csrc/poseidon.cu's note; the cut-over is
+# chip_smoke.py phase 3's measurement).
+SPONGE_GROUP = 16
+GROUP_BELOW_LEAVES = 1 << 14
+
+
+def sponge_group(leaves: int) -> int:
+    """Lanes that hash one leaf in a launch of ``leaves`` leaves."""
+    return SPONGE_GROUP if leaves < GROUP_BELOW_LEAVES else 1
 
 
 # -- device (batched) -------------------------------------------------------
@@ -51,21 +75,60 @@ def hash_no_pad_torch(inputs: torch.Tensor,
     return state[:, :num_outputs]
 
 
-def hash_rows_cuda(inputs: torch.Tensor,
-                   num_outputs: int = NUM_HASH_OUT_ELTS) -> torch.Tensor:
+def hash_cols_torch(cols: torch.Tensor, num_outputs: int = NUM_HASH_OUT_ELTS,
+                    leaf_order: bool = True) -> torch.Tensor:
+    """Plain torch sponge of each column of a (L, n) int64 array -> (n,
+    num_outputs), row i the digest of column reverse_bits(i) when
+    leaf_order, else of column i."""
+    rows = cols.transpose(0, 1)
+    if leaf_order:
+        perm = reverse_index_bits_perm(cols.shape[1])
+        rows = rows[torch.as_tensor(perm, dtype=torch.int64, device=cols.device)]
+    return hash_no_pad_torch(rows, num_outputs)
+
+
+def hash_rows_cuda(inputs: torch.Tensor, num_outputs: int = NUM_HASH_OUT_ELTS,
+                   group: int | None = None) -> torch.Tensor:
     """The sponge on the card through csrc/poseidon.cu poseidon_hash_rows:
-    (rows, L) int64 rows, contiguous -> a new (rows, num_outputs) tensor.
+    (rows, L) int64 rows, contiguous -> a new (rows, num_outputs) tensor;
+    ``group`` lanes per row (1 or SPONGE_GROUP; sponge_group by default).
 
     Replaces a loop of plonky2_tpu/ops/poseidon_pallas.py permute_cols
     launches, one per rate-8 chunk, with the slicing and concatenation
-    between them: one launch keeps each row's state in registers."""
+    between them: one launch keeps each row's state on chip."""
     check_cuda_tensor(inputs, "hash rows")
     if inputs.ndim != 2:
         raise ValueError(f"hash rows: expected (rows, L), got {tuple(inputs.shape)}")
-    out = torch.empty(inputs.shape[0], num_outputs, dtype=torch.int64,
-                      device=inputs.device)
-    HASH_ROWS(inputs.data_ptr(), out.data_ptr(), inputs.shape[0],
-              inputs.shape[1], num_outputs)
+    rows = inputs.shape[0]
+    out = torch.empty(rows, num_outputs, dtype=torch.int64, device=inputs.device)
+    HASH_ROWS(inputs.data_ptr(), out.data_ptr(), rows, inputs.shape[1],
+              num_outputs, group or sponge_group(rows))
+    return out
+
+
+def hash_cols_cuda(cols: torch.Tensor, num_outputs: int = NUM_HASH_OUT_ELTS,
+                   leaf_order: bool = True,
+                   group: int | None = None) -> torch.Tensor:
+    """The sponge of each column of a (L, n) int64 CUDA array, rows
+    contiguous (any row stride), through csrc/poseidon.cu
+    poseidon_hash_cols -> a new (n, num_outputs) tensor in the order of
+    hash_cols_torch."""
+    if not cols.is_cuda:
+        raise ValueError(f"hash cols: expected a CUDA tensor, got {cols.device}")
+    if cols.dtype != torch.int64:
+        raise ValueError(f"hash cols: expected int64, got {cols.dtype}")
+    if cols.ndim != 2:
+        raise ValueError(f"hash cols: expected (L, n), got {tuple(cols.shape)}")
+    length, n = cols.shape
+    if (n > 1 and cols.stride(1) != 1) or (length > 1 and cols.stride(0) < n):
+        raise ValueError(f"hash cols: rows must be contiguous and apart, got "
+                         f"strides {cols.stride()}")
+    if leaf_order:
+        log2_strict(n)
+    out = torch.empty(n, num_outputs, dtype=torch.int64, device=cols.device)
+    HASH_COLS(cols.data_ptr(), out.data_ptr(), length, n,
+              cols.stride(0) if length > 1 else n, num_outputs,
+              int(leaf_order), group or sponge_group(n))
     return out
 
 
@@ -80,6 +143,29 @@ def hash_no_pad(inputs: GF, num_outputs: int = NUM_HASH_OUT_ELTS) -> GF:
     else:
         out = hash_no_pad_torch(rows, num_outputs)
     return GF(out.reshape(*batch, num_outputs))
+
+
+def hash_no_pad_cols(cols: GF, num_outputs: int = NUM_HASH_OUT_ELTS,
+                     leaf_order: bool = True) -> GF:
+    """hash_no_pad of each column of a (L, n) batch -> (n, num_outputs), in
+    leaf order (row i: column reverse_bits(i)) or in column order."""
+    if num_outputs > SPONGE_RATE:
+        raise ValueError("multi-squeeze is not supported")
+    if cols.v.is_cuda:
+        return GF(hash_cols_cuda(cols.v, num_outputs, leaf_order))
+    return GF(hash_cols_torch(cols.v, num_outputs, leaf_order))
+
+
+def hash_or_noop_cols(cols: GF, leaf_order: bool = True) -> GF:
+    """hash_or_noop of each column of a (L, n) batch -> (n, 4), ordered as
+    hash_no_pad_cols."""
+    length = cols.shape[0]
+    if length > NUM_HASH_OUT_ELTS:
+        return hash_no_pad_cols(cols, NUM_HASH_OUT_ELTS, leaf_order)
+    rows = cols.transpose(1, 0)
+    if leaf_order:
+        rows = rows.take(reverse_index_bits_perm(cols.shape[1]), axis=0)
+    return hash_or_noop(rows)
 
 
 def hash_or_noop(inputs: GF) -> GF:

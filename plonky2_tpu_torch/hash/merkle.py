@@ -5,7 +5,10 @@ batched ``hash_or_noop`` over all leaves, then log2(n) - cap_height batched
 2-to-1 compressions, one permutation launch per level.  Digests, caps and
 proofs equal the reference's.  Leaves and digest levels stay on the device;
 only the cap is pulled to the host, and ``open`` gathers just the requested
-rows of every level.
+rows of every level.  A tree built by ``from_columns`` keeps its leaves as
+the (leaf_len, n) columns they were given (a committed batch's LDE, leaf i
+being column reverse_bits(i)), hashed where they lie, and gathers an opened
+leaf from them; ``leaves`` builds the (n, leaf_len) rows only when read.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import numpy as np
 import torch
 
 from ..field.goldilocks import GF
-from ..utils.bits import log2_strict
-from .hashing import compress, compress_np, hash_or_noop, hash_or_noop_np
+from ..utils.bits import log2_strict, reverse_index_bits_perm
+from .hashing import (compress, compress_np, hash_or_noop, hash_or_noop_cols,
+                      hash_or_noop_np)
 
 
 @dataclass
@@ -43,30 +47,71 @@ class MerkleProof:
 
 
 class MerkleTree:
-    """leaves: GF (n, leaf_len) on the device; n a power of two."""
+    """leaves: GF (n, leaf_len) rows on the device; n a power of two."""
 
     def __init__(self, leaves: GF, cap_height: int):
-        bits = log2_strict(leaves.shape[0])
+        self._set_levels(hash_or_noop(leaves), cap_height)
+        self.leaf_len = leaves.shape[1]
+        self._rows, self.columns = leaves, None
+
+    @classmethod
+    def from_columns(cls, columns: GF, cap_height: int) -> "MerkleTree":
+        """The tree of the leaves (leaf_len, n) columns hold, leaf i being
+        column reverse_bits(i): hashed in place, no row copy kept."""
+        tree = cls.__new__(cls)
+        tree._set_levels(hash_or_noop_cols(columns), cap_height)
+        tree.leaf_len = columns.shape[0]
+        tree._rows, tree.columns = None, columns
+        return tree
+
+    @classmethod
+    def from_levels(cls, levels: list, cap_height: int,
+                    columns: GF) -> "MerkleTree":
+        """The tree of from_columns(columns, cap_height) whose digest levels
+        are known already (a checkpoint, a gathered commitment)."""
+        tree = cls.__new__(cls)
+        tree.cap_height = cap_height
+        tree.leaf_len = columns.shape[0]
+        tree.levels = levels
+        tree.cap = MerkleCap(levels[-1].to_u64())
+        tree._rows, tree.columns = None, columns
+        return tree
+
+    def _set_levels(self, digests: GF, cap_height: int) -> None:
+        bits = log2_strict(digests.shape[0])
         if cap_height > bits:
             raise ValueError(f"cap height {cap_height} exceeds tree height {bits}")
         self.cap_height = cap_height
-        self.leaf_len = leaves.shape[1]
-        cur = hash_or_noop(leaves)
+        cur = digests
         levels = [cur]
         for _ in range(bits - cap_height):
             cur = compress(cur[0::2, :], cur[1::2, :])
             levels.append(cur)
-        self.leaves = leaves
         self.levels = levels      # levels[0]: leaf digests; levels[-1]: cap
         self.cap = MerkleCap(levels[-1].to_u64())
+
+    @property
+    def leaves(self) -> GF:
+        """(n, leaf_len) leaf rows in leaf order (from the columns, a new
+        tensor on each read)."""
+        if self.columns is None:
+            return self._rows
+        perm = reverse_index_bits_perm(self.columns.shape[1])
+        return self.columns.transpose(1, 0).take(perm, axis=0)
 
     def open(self, indices: np.ndarray):
         """(q,) leaf indices -> (leaves (q, leaf_len), sibs (q, depth, 4)),
         canonical host u64, one gather per level."""
-        idx = torch.as_tensor(np.asarray(indices, np.int64),
-                              device=self.leaves.device)
+        idx_np = np.asarray(indices, np.int64)
+        device = self.levels[0].device
+        idx = torch.as_tensor(idx_np, device=device)
         depth = len(self.levels) - 1
-        leaves = GF(self.leaves.v[idx]).to_u64()
+        if self.columns is None:
+            leaves = GF(self._rows.v[idx]).to_u64()
+        else:
+            perm = reverse_index_bits_perm(self.columns.shape[1])
+            cols = torch.as_tensor(perm[idx_np].astype(np.int64), device=device)
+            leaves = GF(self.columns.v[:, cols].transpose(0, 1)).to_u64()
         if depth == 0:
             return leaves, np.zeros((idx.numel(), 0, 4), np.uint64)
         sibs = GF(torch.stack([self.levels[d].v[(idx >> d) ^ 1]

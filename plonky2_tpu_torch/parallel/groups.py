@@ -32,7 +32,7 @@ import torch
 
 from ..field.goldilocks import GF
 from ..fri.oracle import COSET_SHIFT, PolynomialBatch
-from ..hash.merkle import MerkleCap, MerkleTree
+from ..hash.merkle import MerkleTree
 from ..utils.bits import log2_strict, reverse_index_bits_perm
 from .fri import ShardedMerkleTree
 from .mesh import (Mesh, all_gather, broadcast, broadcast_bytes, make_mesh,
@@ -93,16 +93,11 @@ class PendingBatch:
         coeffs = GF(pieces[0].reshape(self.k, self.n))
         leaves = GF(pieces[1].reshape(big, self.k))
         levels = [GF(p.reshape(-1, 4)) for p in pieces[2:]]
-        tree = object.__new__(MerkleTree)
-        tree.cap_height = self.cap_height
-        tree.leaf_len = self.k
-        tree.leaves = leaves
-        tree.levels = levels
-        tree.cap = MerkleCap(levels[-1].to_u64())
         # leaf row i is LDE point rev(i); the permutation is an involution
         lde = GF(leaves.v[torch.as_tensor(reverse_index_bits_perm(big),
                                           device=flat.device)]
                  .transpose(0, 1).contiguous())
+        tree = MerkleTree.from_levels(levels, self.cap_height, lde)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(self.n),
                                self.rate_bits, False)
 

@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from ..field import gl64, ntt
 from ..field.goldilocks import GF
-from ..hash.hashing import hash_or_noop
+from ..hash.hashing import hash_or_noop_cols
 from ..utils.bits import log2_strict
 from ..utils.cuda import resolve_device
 
@@ -275,10 +275,11 @@ def dp_lde_and_leaf_hash(polys: GF, rate_bits: int, shift: int, mesh: Mesh,
     """Data-parallel LDE + per-shard Merkle leaf hashing.
 
     polys: the rank's block of the batch (shard_polys).  Each rank LDEs its
-    polynomials locally; leaf hashing needs whole rows, so one all_to_all
-    transpose re-shards by rows (per-rank memory stays full/size).  The
-    zero pad rows of the batch (those at and above num_polys) are dropped
-    before hashing.  Returns the rank's block of the leaf digests: rows
+    polynomials locally; leaf hashing needs whole leaves, so one all_to_all
+    re-shards by LDE point (per-rank memory stays full/size), and the
+    sponge hashes the columns of that block where they lie.  The zero pad
+    rows of the batch (those at and above num_polys) are dropped before
+    hashing.  Returns the rank's block of the leaf digests: rows
     [rank * N / size, (rank + 1) * N / size) of the (N, 4) digests of the
     natural-order LDE rows, N = n << rate_bits.
     """
@@ -286,7 +287,7 @@ def dp_lde_and_leaf_hash(polys: GF, rate_bits: int, shift: int, mesh: Mesh,
     rows = all_to_all(values.v, mesh)                      # (b * size, N/size)
     if num_polys is not None:
         rows = rows[:num_polys]
-    return hash_or_noop(GF(rows.transpose(0, 1).contiguous()))
+    return hash_or_noop_cols(GF(rows), leaf_order=False)
 
 
 @lru_cache(maxsize=8)

@@ -768,14 +768,17 @@ def write_merkle_tree(buf: Buffer, tree) -> None:
 
 
 def read_merkle_tree(buf: Buffer, device):
-    """A tree as written by ``write_merkle_tree``; a Poseidon tree's leaves
-    and levels are uploaded onto ``device``."""
+    """A tree as written by ``write_merkle_tree``.  A Poseidon tree's levels
+    are uploaded onto ``device`` and its leaf rows become the (leaf_len, n)
+    columns of MerkleTree.from_columns (leaf i is column reverse_bits(i))."""
     is_bytes = buf.read_u8() == 1
-    tree = object.__new__(BytesMerkleTree if is_bytes else MerkleTree)
-    tree.cap_height = buf.read_usize()
-    tree.leaf_len = buf.read_usize()
+    cap_height = buf.read_usize()
+    leaf_len = buf.read_usize()
     leaves = _read_u64s(buf)
     if is_bytes:
+        tree = object.__new__(BytesMerkleTree)
+        tree.cap_height = cap_height
+        tree.leaf_len = leaf_len
         levels = []
         for _ in range(buf.read_usize()):
             n, w = buf.read_usize(), buf.read_usize()
@@ -785,11 +788,12 @@ def read_merkle_tree(buf: Buffer, device):
         tree.levels = levels
         tree.cap = BytesMerkleCap(levels[-1])
         return tree
-    levels = [_read_u64s(buf) for _ in range(buf.read_usize())]
-    tree.leaves = GF.from_u64(leaves, device)
-    tree.levels = [GF.from_u64(lvl, device) for lvl in levels]
-    tree.cap = MerkleCap(gl64.to_canonical(levels[-1]))
-    return tree
+    levels = [GF.from_u64(_read_u64s(buf), device)
+              for _ in range(buf.read_usize())]
+    rows = leaves.reshape(-1, leaf_len)
+    columns = GF.from_u64(np.ascontiguousarray(
+        rows[reverse_index_bits_perm(rows.shape[0])].T), device)
+    return MerkleTree.from_levels(levels, cap_height, columns)
 
 
 def write_polynomial_batch(buf: Buffer, batch) -> None:
@@ -803,22 +807,26 @@ def write_polynomial_batch(buf: Buffer, batch) -> None:
 def read_polynomial_batch(buf: Buffer, device):
     """A committed batch on ``device``.  Its natural-order LDE values are
     the tree's leaf rows, un-bit-reversed and transposed, less any salt
-    columns: no LDE or hash runs again."""
+    columns: no LDE or hash runs again.  A Poseidon batch's LDE values are
+    a view of its tree's columns, as a fresh commitment's are."""
     from ..fri.oracle import PolynomialBatch
     degree_log = buf.read_usize()
     rate_bits = buf.read_usize()
     blinding = buf.read_bool()
     polys = GF.from_u64(_read_u64s(buf), device)
     tree = read_merkle_tree(buf, device)
-    is_bytes = isinstance(tree, BytesMerkleTree)
-    leaves = (GF.from_u64(tree.leaves_np, device) if is_bytes
-              else tree.leaves)
-    perm = reverse_index_bits_perm(leaves.shape[0])
-    lde_values = GF(leaves.take(perm, axis=0).transpose(1, 0)
-                    .v[:polys.shape[0]].contiguous())
+    k = polys.shape[0]
+    if isinstance(tree, BytesMerkleTree):
+        leaves = GF.from_u64(tree.leaves_np, device)
+        perm = reverse_index_bits_perm(leaves.shape[0])
+        lde_values = GF(leaves.take(perm, axis=0).transpose(1, 0)
+                        .v[:k].contiguous())
+        hasher = "keccak"
+    else:
+        lde_values = tree.columns[:k]
+        hasher = "poseidon"
     return PolynomialBatch(polys, lde_values, tree, degree_log, rate_bits,
-                           blinding,
-                           hasher="keccak" if is_bytes else "poseidon")
+                           blinding, hasher=hasher)
 
 
 def prover_data_to_bytes(prover_only) -> bytes:

@@ -98,3 +98,61 @@ def test_from_values_cap_matches_jax():
     assert np.array_equal(port.polynomials.to_u64(), ref.polynomials.to_u64())
     assert np.array_equal(port.lde_values_natural().to_u64(),
                           jgl64.lde_np(ref.polynomials.to_u64(), rate, COSET_SHIFT))
+
+
+def test_from_values_column_tree_matches_jax():
+    """The commitment's tree holds the LDE itself as its leaf columns (no
+    (N, k) copy) and gives the JAX package's cap, opened leaves, siblings
+    and get_leaf."""
+    rng = np.random.default_rng(13)
+    n, rate, cap_height = 16, 1, 4
+    values = rng.integers(0, P, size=(9, n), dtype=np.uint64)
+    port = PolynomialBatch.from_values(GF.from_u64(values, "cpu"), rate, False,
+                                       cap_height)
+    ref = JPolynomialBatch.from_values(JGF.from_u64(values), rate, False,
+                                       cap_height)
+    tree, jtree = port.merkle_tree, ref.merkle_tree
+    assert tree.columns.v.data_ptr() == port.lde_values.v.data_ptr()
+    assert tree._rows is None
+    assert np.array_equal(tree.cap.data, jtree.cap.data)
+    idx = np.array([0, 5, 31, 16, 5])
+    got, want = tree.open(idx), jtree.open(idx)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    for i in (3, 30):
+        assert np.array_equal(tree.get_leaf(i), jtree.get_leaf(i))
+
+
+@pytest.mark.parametrize("k", [3, 9])
+def test_blinded_commitment_opens_and_verifies(k):
+    """Under blinding the tree's columns are the LDE plus SALT_SIZE random
+    rows, the batch's LDE values a view of them; salts are random, so the
+    cap is checked by shape and the openings by both packages' verifiers."""
+    from plonky2_tpu.hash.merkle import MerkleProof as JMerkleProof
+    from plonky2_tpu.hash.merkle import \
+        verify_merkle_proof_to_cap as jverify_merkle_proof_to_cap
+    from plonky2_tpu_torch.fri.oracle import SALT_SIZE
+    from plonky2_tpu_torch.hash.merkle import verify_merkle_proofs_to_cap
+    rng = np.random.default_rng(k)
+    n, rate, cap_height = 16, 1, 4
+    values = rng.integers(0, P, size=(k, n), dtype=np.uint64)
+    port = PolynomialBatch.from_values(GF.from_u64(values, "cpu"), rate, True,
+                                       cap_height)
+    tree = port.merkle_tree
+    assert tree.leaf_len == k + SALT_SIZE
+    assert tree.columns.shape == (k + SALT_SIZE, n << rate)
+    assert tree.columns.v.data_ptr() == port.lde_values.v.data_ptr()
+    assert port.lde_values.shape == (k, n << rate)
+    assert np.array_equal(port.lde_values.to_u64(),
+                          jgl64.lde_np(port.polynomials.to_u64(), rate,
+                                       COSET_SHIFT))
+    assert tree.cap.data.shape == (1 << cap_height, 4)
+    idx = np.array([0, 7, 31, 7])
+    leaves, sibs = tree.open(idx)
+    assert leaves.shape == (4, k + SALT_SIZE)
+    assert verify_merkle_proofs_to_cap(leaves, idx, tree.cap, sibs)
+    for q, i in enumerate(idx):
+        assert jverify_merkle_proof_to_cap(leaves[q], int(i), tree.cap,
+                                           JMerkleProof(sibs[q]))
+    leaves[1, -1] ^= np.uint64(1)                      # a salt element
+    assert not verify_merkle_proofs_to_cap(leaves, idx, tree.cap, sibs)

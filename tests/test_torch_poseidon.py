@@ -14,7 +14,11 @@ import pytest
 from plonky2_tpu.field import gl64 as jgl64
 from plonky2_tpu.field.goldilocks import GF as JGF
 from plonky2_tpu.hash import hashing as jhashing
+from plonky2_tpu.hash.merkle import MerkleCap as JMerkleCap
+from plonky2_tpu.hash.merkle import MerkleProof as JMerkleProof
 from plonky2_tpu.hash.merkle import MerkleTree as JMerkleTree
+from plonky2_tpu.hash.merkle import \
+    verify_merkle_proof_to_cap as jverify_merkle_proof_to_cap
 from plonky2_tpu.hash.poseidon import permute as jpermute
 from plonky2_tpu.hash.poseidon import permute_np as jpermute_np
 from plonky2_tpu_torch.field import gl64
@@ -24,6 +28,7 @@ from plonky2_tpu_torch.hash import poseidon
 from plonky2_tpu_torch.hash import poseidon_constants as C
 from plonky2_tpu_torch.hash.merkle import (MerkleTree, verify_merkle_proof_to_cap,
                                           verify_merkle_proofs_to_cap)
+from plonky2_tpu_torch.utils.bits import reverse_index_bits_perm
 
 P = jgl64.ORDER_INT
 
@@ -107,6 +112,71 @@ def test_kernel_round_schedule_matches_permute_np(rng):
                           gl64.to_canonical(poseidon.permute_np(states)))
 
 
+def _permute_lane_schedule_np(state):
+    """A numpy mirror of csrc/poseidon.cu's lane-group permutation
+    (permute_lanes): 16 lanes a state, lane l < 12 holding element l, a
+    shuffle being a gather over the lane axis; in the partial rounds lane
+    0's S-box output broadcast to the group and the W_HATS products summed
+    by an xor butterfly."""
+    g, w = 16, 12
+    lanes = np.arange(g)
+    lc = np.minimum(lanes, w - 1)
+    lm = np.where((lanes >= 1) & (lanes < w), lanes - 1, 0)
+    dot_lane = (lanes >= 1) & (lanes < w)
+    u64 = np.uint64
+    rc = np.array(C.ALL_ROUND_CONSTANTS, dtype=u64).reshape(30, 12)
+    init = np.array(C.FAST_PARTIAL_ROUND_INITIAL_MATRIX, dtype=u64).reshape(-1)
+    vs = np.array(C.FAST_PARTIAL_ROUND_VS, dtype=u64).reshape(-1)
+    wh = np.array(C.FAST_PARTIAL_ROUND_W_HATS, dtype=u64).reshape(-1)
+    prc = list(C.FAST_PARTIAL_ROUND_CONSTANTS) + [0] * 22
+
+    def full_round(x, r):
+        x = poseidon._sbox_np(gl64.add(x, rc[r][lc]))
+        acc = [0] * x.size
+        for i in range(w):
+            src = np.where(lanes + i >= w, lanes + i - w, lanes + i)
+            acc = [a + C.MDS_MATRIX_CIRC[i] * int(v)
+                   for a, v in zip(acc, x[:, src].reshape(-1))]
+        acc = [a + (8 * int(v) if k % g == 0 else 0)
+               for k, (a, v) in enumerate(zip(acc, x.reshape(-1)))]
+        return np.array([a % P for a in acc], dtype=u64).reshape(x.shape)
+
+    def group_sum(v):
+        for m in (1, 2, 4, 8):
+            v = gl64.add(v, v[:, lanes ^ m])
+        return v
+
+    x = np.zeros((state.shape[0], g), dtype=u64)
+    x[:, :w] = state
+    for r in range(4):
+        x = full_round(x, r)
+    x = gl64.add(x, np.array(C.FAST_PARTIAL_FIRST_ROUND_CONSTANT, dtype=u64)[
+        np.where(lanes < w, lanes, 0)])
+    acc = np.zeros_like(x)
+    for r in range(1, w):
+        acc = gl64.add(acc, gl64.mul(x[:, [r] * g], init[(r - 1) * (w - 1) + lm]))
+    x = np.where(lanes == 0, x, acc)
+    for r in range(22):
+        s0 = gl64.add(poseidon._sbox_np(x), u64(prc[r]))
+        dot = group_sum(np.where(dot_lane, gl64.mul(x, wh[r * 11 + lm]), u64(0)))
+        b = s0[:, [0] * g]
+        x = gl64.add(gl64.mul(b, np.where(lanes == 0, u64(25), vs[r * 11 + lm])),
+                     np.where(lanes == 0, dot, x))
+    for r in range(26, 30):
+        x = full_round(x, r)
+    return x[:, :w]
+
+
+def test_lane_group_schedule_matches_permute_np(rng):
+    """csrc/poseidon.cu's lane-group round schedule gives the canonical
+    permutation on random, zero and all-ones states."""
+    states = rng.integers(0, 1 << 64, size=(16, 12), dtype=np.uint64)
+    states[0] = 0
+    states[1] = np.uint64((1 << 64) - 1)
+    assert np.array_equal(gl64.to_canonical(_permute_lane_schedule_np(states)),
+                          gl64.to_canonical(poseidon.permute_np(states)))
+
+
 @pytest.mark.parametrize("length", [5, 8, 9, 135])
 def test_sponge_plain_matches_jax(rng, length):
     """The plain version of the fused sponge kernel (hash_no_pad_torch)
@@ -132,6 +202,76 @@ def test_hash_rows_dispatch_is_by_device(rng):
     assert np.array_equal(got.to_u64(), hashing.hash_no_pad_np(x))
     with pytest.raises(ValueError, match="CUDA"):
         hashing.hash_rows_cuda(GF.from_u64(x.reshape(6, 9), "cpu").v)
+
+
+@pytest.mark.parametrize("leaf_order", [True, False])
+@pytest.mark.parametrize("length", [3, 9, 135])
+def test_hash_cols_matches_jax(length, leaf_order):
+    """The column sponge (plain version here) against the JAX package's
+    hash_or_noop of the transposed columns, in leaf and in column order;
+    rows of a wider array (a row stride above n) read the same."""
+    rng = np.random.default_rng(length)
+    n = 16
+    wide = rng.integers(0, P, size=(length, n + 5), dtype=np.uint64)
+    cols = GF.from_u64(wide, "cpu")[:, :n]
+    rows = wide[:, :n].T
+    if leaf_order:
+        rows = rows[reverse_index_bits_perm(n)]
+    want = jhashing.hash_or_noop_np(rows)
+    assert np.array_equal(hashing.hash_or_noop_cols(cols, leaf_order).to_u64(),
+                          want)
+    if length > 4:
+        assert np.array_equal(
+            hashing.hash_no_pad_cols(cols, 4, leaf_order).to_u64(), want)
+
+
+def test_hash_cols_dispatch_is_by_device():
+    cols = GF.from_u64(np.arange(9 * 8, dtype=np.uint64).reshape(9, 8), "cpu")
+    before = hashing.HASH_COLS.launches
+    hashing.hash_no_pad_cols(cols)
+    assert hashing.HASH_COLS.launches == before       # CPU: plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        hashing.hash_cols_cuda(cols.v)
+    assert hashing.sponge_group(1 << 10) == hashing.SPONGE_GROUP
+    assert hashing.sponge_group(1 << 20) == 1
+
+
+@pytest.mark.parametrize("cap_height", [0, 4])
+@pytest.mark.parametrize("leaf_len", [3, 9, 135])
+def test_merkle_tree_from_columns_matches_jax(leaf_len, cap_height):
+    """A tree built from (leaf_len, n) columns (leaf i: column
+    reverse_bits(i)) against the JAX package's tree of the leaf rows: the
+    same cap, opened leaves, siblings and get_leaf, and the rows on demand.
+    For 135-element leaves the JAX package's jitted sponge takes XLA:CPU
+    about a minute to compile, so there its host twins stand in: the cap
+    from hash_or_noop_np and compress_np, and its host verifier."""
+    rng = np.random.default_rng(leaf_len * 10 + cap_height)
+    n = 32     # the JAX tree opens nothing below a cap of 2^4 roots at 16
+    cols = rng.integers(0, P, size=(leaf_len, n), dtype=np.uint64)
+    rows = cols.T[reverse_index_bits_perm(n)]
+    tree = MerkleTree.from_columns(GF.from_u64(cols, "cpu"), cap_height)
+    assert tree.leaf_len == leaf_len
+    assert np.array_equal(tree.leaves.to_u64(), rows)
+    idx = np.array([0, 1, 6, 31, 6])
+    got_leaves, got_sibs = tree.open(idx)
+    assert np.array_equal(got_leaves, rows[idx])
+    if leaf_len == 135:
+        level = jhashing.hash_or_noop_np(rows)
+        while level.shape[0] > 1 << cap_height:
+            level = jhashing.compress_np(level[0::2], level[1::2])
+        assert np.array_equal(tree.cap.data, level)
+        for q, i in enumerate(idx):
+            assert jverify_merkle_proof_to_cap(
+                got_leaves[q], int(i), JMerkleCap(level),
+                JMerkleProof(got_sibs[q]))
+        return
+    jtree = JMerkleTree(JGF.from_u64(rows), cap_height)
+    assert np.array_equal(tree.cap.data, jtree.cap.data)
+    want_leaves, want_sibs = jtree.open(idx)
+    assert np.array_equal(got_leaves, want_leaves)
+    assert np.array_equal(got_sibs, want_sibs)
+    for i in (0, 9, 31):
+        assert np.array_equal(tree.get_leaf(i), jtree.get_leaf(i))
 
 
 def test_hashing_matches_jax_and_host(rng):

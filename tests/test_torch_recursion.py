@@ -296,7 +296,20 @@ def test_checkpoint_round_trip_proves(port_checkpoint):
 
 
 def test_checkpoint_bytes_equal_jax(port_checkpoint, jax_checkpoint):
-    assert port_checkpoint[3] == jax_checkpoint[3]
+    """The blob of the port's build equals the JAX package's, though the
+    port's constants commitment keeps its LDE as the tree's leaf columns
+    (no leaf-row copy), and a blob read back keeps them so too."""
+    data, _, _, blob, _ = port_checkpoint
+    assert blob == jax_checkpoint[3]
+    batch = data.prover_only.constants_sigmas_commitment
+    assert batch.merkle_tree.columns.v.data_ptr() == \
+        batch.lde_values.v.data_ptr()
+    read = circuit_data_from_bytes(jax_checkpoint[3], device="cpu")
+    batch2 = read.prover_only.constants_sigmas_commitment
+    assert batch2.merkle_tree.columns.v.data_ptr() == \
+        batch2.lde_values.v.data_ptr()
+    assert batch2.merkle_tree.cap == batch.merkle_tree.cap
+    assert np.array_equal(batch2.lde_values.to_u64(), batch.lde_values.to_u64())
 
 
 def test_jax_checkpoint_proves_in_the_port(port_checkpoint, jax_checkpoint):

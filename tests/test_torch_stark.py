@@ -61,6 +61,10 @@ PARALLEL_SLICE_MODULES = [
     "parallel.mesh", "parallel.prover", "parallel.fri",
     "parallel.stark_prover", "parallel.plonk_prover", "parallel.multi_prover",
     "parallel.groups"]
+# the modules of the leaf sponge's redesign and the STARK test harness
+SPONGE_SLICE_MODULES = [
+    "hash.hashing", "hash.merkle", "fri.oracle", "utils.serialization",
+    "parallel.groups", "parallel.mesh", "stark.testing"]
 
 
 def fib_pis(stark, x0, x1):
@@ -138,7 +142,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m == 'plonky2_tpu' "
         "or m.startswith('plonky2_tpu.')]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES + RECURSION_SLICE_MODULES + PARALLEL_SLICE_MODULES!r} "
+        f"missing = [m for m in {PLONK_SLICE_MODULES + ZKEVM_SLICE_MODULES + RECURSION_SLICE_MODULES + PARALLEL_SLICE_MODULES + SPONGE_SLICE_MODULES!r} "
         "if 'plonky2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules "
