@@ -10,7 +10,9 @@ Phases, one line each:
   1. build of every CUDA kernel in plonky2_tpu_torch/csrc (nvcc, sm_90a),
      with each kernel's registers, spills and SASS instructions by class;
   2. Poseidon permutation kernel against its plain torch version on 2^17
-     states, noncanonical and zero states among them (exact);
+     states, noncanonical and zero states among them (exact); in phases
+     2-5 the plain versions run and are timed under torch_path(), so their
+     field ops are plain torch too, and results are reduced on the host;
   3. the leaf sponge's two entries, poseidon_hash_rows on (rows, L) rows
      and poseidon_hash_cols on the (L, rows) columns (digests in Merkle
      leaf order, and in column order at (2^15, 9) and (1001, 13)), each at
@@ -29,6 +31,21 @@ Phases, one line each:
      (135, 2^15), coset_intt of (2, 2^18), coset_ntt of (2, 2^20), ntt of
      (8, 2^16), of (1, 2^23) (the three-pass plan) and coset_intt of
      (4, 2^22), the MemoryStark quotient (exact);
+  5a. field: csrc/field.cu's seven entries (base add, sub, mul, neg,
+     canonical; extension mul, square) against their torch versions
+     (*_torch) on every pair of tests/test_torch_field.py's edge values and
+     random u64 values, [p, 2^64) among them, at the same shape, a 0-d
+     scalar on either side, a (k, 1) x (k, n) broadcast, strided [..., 0::2]
+     / [..., 1::2] operands, rank 4 and contiguous rank 5 (equal residues
+     and equal bits), and a strided rank-5 operand refused with ValueError;
+     2^16- and 2^20-row Fibonacci STARK proofs through the kernels equal
+     byte for byte the proofs of the torch path (torch_path(): no field.cu
+     launch);
+     each path's warm prove seconds and, under torch.profiler at 2^20, its
+     device launches; CUDA-event ms of mul, add and the extension mul on
+     2^21 elements (calls queued back to back, and one call alone)
+     against the bytes bound, and the host microseconds a call of mul and
+     add on one element;
   6. a 2^10-row Fibonacci STARK proved on cuda and on cpu gives the same
      proof bytes, and a wrong public result is rejected by the verifier;
   7. an m = 2 matrix-multiplication plonk proof (standard_recursion_config)
@@ -110,6 +127,7 @@ warm-up.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -135,6 +153,8 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 # reduction needs none (its product by 2^32 - 1 is a shift and a subtract).
 # The bounds below count only these multiplies, so they are floors.
 MULMOD_MULS = 4
+
+P_INT = 2**64 - 2**32 + 1          # the Goldilocks prime
 
 
 def poseidon_muls() -> dict:
@@ -190,6 +210,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def torch_path():
+    """Every field op on CUDA tensors runs its plain torch version
+    (goldilocks.run_kernel answers None, in goldilocks and in the name
+    extension imported): the plain versions the kernels are held against
+    contain no csrc/field.cu launch."""
+    from unittest import mock
+
+    from plonky2_tpu_torch.field import extension as ext
+    from plonky2_tpu_torch.field import goldilocks as gl
+    plain = lambda *args: None                          # noqa: E731
+    with mock.patch.object(gl, "run_kernel", plain), \
+            mock.patch.object(ext, "run_kernel", plain):
+        yield
+
+
+def host_residues(t: torch.Tensor) -> np.ndarray:
+    """Canonical u64 values of a tensor, reduced on the host."""
+    v = t.cpu().numpy().view(np.uint64)
+    return np.where(v >= np.uint64(P_INT), v - np.uint64(P_INT), v)
 
 
 def bound(ops: float, nbytes: float) -> tuple:
@@ -268,7 +310,6 @@ def sass_classes(so_path) -> dict:
 
 
 def phase_poseidon() -> dict:
-    from plonky2_tpu_torch.field.goldilocks import canonical
     from plonky2_tpu_torch.hash import poseidon
     rng = np.random.default_rng(1)
     b = 1 << 17
@@ -279,13 +320,15 @@ def phase_poseidon() -> dict:
         0, 0xFFFFFFFF, size=(1024, 12), dtype=np.uint64)
     states[1024] = 0
     x = torch.from_numpy(states.view(np.int64)).cuda()
-    got = canonical(poseidon.permute_cuda(x)).cpu().numpy().view(np.uint64)
-    want = canonical(poseidon.permute_torch(x)).cpu().numpy().view(np.uint64)
+    got = host_residues(poseidon.permute_cuda(x))
+    with torch_path():
+        want = host_residues(poseidon.permute_torch(x))
     err = max_abs_err(got, want)
     if err:
         fail(f"poseidon kernel differs from permute_torch (max |err| {err})")
     ms = cuda_ms(lambda: poseidon.permute_cuda(x), reps=20)
-    plain_ms = cuda_ms(lambda: poseidon.permute_torch(x), reps=3)
+    with torch_path():
+        plain_ms = cuda_ms(lambda: poseidon.permute_torch(x), reps=3)
     muls = poseidon_muls()
     bound_ms, bound_by = bound(b * min(muls.values()), b * 12 * 8 * 2)
     line("poseidon", states=b, exact=True, ms=ms, plain_ms=plain_ms,
@@ -306,8 +349,7 @@ def random_gf(shape, seed: int):
 
 
 def host_canonical(x) -> np.ndarray:
-    from plonky2_tpu_torch.field.goldilocks import canonical
-    return canonical(x.v).cpu().numpy().view(np.uint64)
+    return host_residues(x.v)
 
 
 def sponge_bound(rows: int, length: int) -> tuple:
@@ -345,15 +387,17 @@ def sponge_case(rows: int, length: int, seed: int, slow_plain: bool = False,
     from plonky2_tpu_torch.utils.bits import reverse_index_bits_perm
     x = random_gf((rows, length), seed).v
     cols = x.transpose(0, 1).contiguous()
-    want, plain_ms = timed_once(lambda: hashing.hash_no_pad_torch(x))
+    with torch_path():
+        want, plain_ms = timed_once(lambda: hashing.hash_no_pad_torch(x))
     want_cols, cols_plain_ms = {}, plain_ms
     for order in orders:
         if slow_plain:
             perm = torch.as_tensor(reverse_index_bits_perm(rows), device="cuda")
             want_cols[order] = want[perm] if order else want
         else:
-            want_cols[order], cols_plain_ms = timed_once(
-                lambda: hashing.hash_cols_torch(cols, 4, order))
+            with torch_path():
+                want_cols[order], cols_plain_ms = timed_once(
+                    lambda: hashing.hash_cols_torch(cols, 4, order))
     err = 0
     ms = {"rows": {}, "cols": {}}
     for group in (1, hashing.SPONGE_GROUP):
@@ -427,12 +471,14 @@ def lde_case(k: int, log_n: int, rate_bits: int, seed: int) -> dict:
     before = ntt.LDE.launches
     got = ntt.lde_cuda(x, rate_bits, 7)
     launched = ntt.LDE.launches - before
-    err = max_abs_err(host_canonical(got),
-                      host_canonical(ntt.lde_torch(x, rate_bits, 7)))
+    with torch_path():
+        want = ntt.lde_torch(x, rate_bits, 7)
+    err = max_abs_err(host_canonical(got), host_canonical(want))
     if err or launched == 0:
         fail(f"LDE kernel differs from lde_torch at {(k, n, rate_bits)}")
     ms = cuda_ms(lambda: ntt.lde_cuda(x, rate_bits, 7), reps=10)
-    plain_ms = cuda_ms(lambda: ntt.lde_torch(x, rate_bits, 7), reps=3)
+    with torch_path():
+        plain_ms = cuda_ms(lambda: ntt.lde_torch(x, rate_bits, 7), reps=3)
     big_n = n << rate_bits
     butterflies = k * (log_n) * (big_n // 2)
     ops = (butterflies + k * n) * MULMOD_MULS
@@ -484,12 +530,15 @@ def ntt_case(op: str, k: int, log_n: int, seed: int) -> dict:
     before = ntt.NTT.launches
     got = kernel()
     launched = ntt.NTT.launches - before
-    err = max_abs_err(host_canonical(got), host_canonical(plain()))
+    with torch_path():
+        want = plain()
+    err = max_abs_err(host_canonical(got), host_canonical(want))
     if err or launched == 0:
         fail(f"NTT kernel differs from {op}_torch at {(k, n)} "
              f"(launches {launched})")
     ms = cuda_ms(kernel, reps=10)
-    plain_ms = cuda_ms(plain, reps=3)
+    with torch_path():
+        plain_ms = cuda_ms(plain, reps=3)
     ops = (k * (n // 2) * log_n + k * n) * MULMOD_MULS
     bound_ms, bound_by = bound(ops, 16 * k * n)
     res = {"op": op, "k": k, "n": n, "exact": True,
@@ -512,6 +561,195 @@ def phase_ntt() -> dict:
     e["also_replaces"] = ["tools/pallas_ntt_proto.py:89",
                           "tools/pallas_ntt2.py:100"]
     return e
+
+
+# tests/test_torch_field.py's edge values
+FIELD_EDGE = [0, 1, 2, P_INT - 1, P_INT, P_INT + 1, 2**64 - 1, 2**63,
+              2**32 - 1, 2**32, 0xFFFFFFFE00000003]
+
+
+def field_operands(n: int, seed: int) -> tuple:
+    """Two 1-d CUDA int64 tensors: every pair of FIELD_EDGE, n random u64
+    pairs, and n values in [p, 2^64) against n random ones."""
+    rng = np.random.default_rng(seed)
+    edge = np.array(FIELD_EDGE, dtype=np.uint64)
+    ea, eb = np.meshgrid(edge, edge)
+    a = np.concatenate([ea.ravel(), rng.integers(0, 1 << 64, n, dtype=np.uint64),
+                        np.uint64(P_INT) + rng.integers(0, 2**32 - 1, n,
+                                                        dtype=np.uint64)])
+    b = np.concatenate([eb.ravel(), rng.integers(0, 1 << 64, n, dtype=np.uint64),
+                        rng.integers(0, 1 << 64, n, dtype=np.uint64)])
+    return tuple(torch.from_numpy(v.view(np.int64).copy()).cuda() for v in (a, b))
+
+
+def field_shapes(a, b, k: int = 7) -> dict:
+    """Operand pairs of every layout the entries take, from two 1-d tensors."""
+    n = (a.numel() // (4 * k)) * 4
+    a2, b2 = a[:k * n].reshape(k, n), b[:k * n].reshape(k, n)
+    r4 = (2, 3, 4, n // 8)
+    r5 = (2, 3, 2, 2, n // 8)
+    m = int(np.prod(r4))
+    return {"same": (a, b),
+            "scalar": (a, b[5].clone()),
+            "scalar_left": (a[5].clone(), b),
+            "broadcast_k1": (a2, b[:k].reshape(k, 1)),
+            "broadcast_k1_left": (b[:k].reshape(k, 1), a2),
+            "strided": (a2[..., 0::2], a2[..., 1::2]),
+            "strided_b": (b2[..., 1::2], a2[..., 0::2]),
+            "rank4": (a[:m].reshape(r4), b[:m].reshape(r4)),
+            "rank5_contiguous": (a[:m].reshape(r5), b[:m].reshape(r5)),
+            "rank4_permuted": (a[:m].reshape(r4).transpose(0, 3),
+                               b[:m].reshape(2, 4, 3, n // 8)
+                               .permute(3, 2, 1, 0))}
+
+
+def field_check(name: str, got: list, want: list) -> None:
+    """Fails unless each output equals its torch version's in residue and in
+    bits, at the torch version's shape."""
+    for g, w in zip(got, want):
+        if tuple(g.shape) != tuple(w.shape):
+            fail(f"field {name}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+        if not np.array_equal(host_residues(g), host_residues(w)):
+            fail(f"field {name}: residues differ from the torch version")
+        if not torch.equal(g, w):
+            fail(f"field {name}: bits differ from the torch version")
+
+
+def field_prove(log_rows: int, kernels: list, profiled: bool) -> dict:
+    """A Fibonacci STARK proved through the field kernels and through the
+    torch path (torch_path()), warm; the two proofs' bytes must be equal,
+    and only the kernel path may launch field.cu entries."""
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.utils.serialization import stark_proof_to_bytes
+    config = StarkConfig.standard_fast_config()
+    stark, trace, pis, _ = fib_inputs(log_rows)
+    run = lambda: prove(stark, config, trace, pis)     # noqa: E731
+    res = {"rows": 1 << log_rows}
+    proofs = {}
+    for path in ("kernels", "torch"):
+        with torch_path() if path == "torch" else contextlib.nullcontext():
+            run()                                      # warm-up
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.reset()
+            t0 = time.perf_counter()
+            proof = run()
+            torch.cuda.synchronize()
+            res[f"{path}_prove_s"] = time.perf_counter() - t0
+            res[f"{path}_calls"] = {k.symbol: k.calls for k in kernels}
+            proofs[path] = stark_proof_to_bytes(proof)
+            if profiled:
+                prof = profile_prove(run, [])
+                res[f"{path}_device_launches"] = prof["device_launches"]
+                res[f"{path}_device_busy_ms"] = prof["device_busy_ms"]
+                res[f"{path}_wall_ms_profiled"] = prof["wall_ms_profiled"]
+    if proofs["kernels"] != proofs["torch"]:
+        fail(f"2^{log_rows} proof bytes differ between the field kernels "
+             "and the torch path")
+    if not any(res["kernels_calls"].values()) or any(res["torch_calls"].values()):
+        fail(f"field.cu calls {res['kernels_calls']} on the kernel path and "
+             f"{res['torch_calls']} on the torch path of the 2^{log_rows} prove")
+    res["proof_bytes"] = len(proofs["kernels"])
+    res["bytes_equal"] = True
+    return res
+
+
+def field_device_ms(fn, reps: int = 50, host_us: float = 60) -> float:
+    """Device milliseconds a call of fn by CUDA events around reps calls
+    queued behind a spin kernel: a field op's host enqueue (~25 us) outlasts
+    its kernel at 2^21 elements, so timed one by one the device would wait
+    on the host between launches.  host_us: the most a call takes to
+    enqueue, which the spin covers."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.98e9 * reps * host_us * 1e-6))   # calls queue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def field_host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of fn (its enqueue), after a warm-up."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_field() -> None:
+    """csrc/field.cu against the torch versions, two proofs on both paths,
+    and the entries' times (module docstring, phase 5a)."""
+    from plonky2_tpu_torch.field import extension as ext
+    from plonky2_tpu_torch.field import goldilocks as gl
+    from plonky2_tpu_torch.field.extension import GF2
+    from plonky2_tpu_torch.field.goldilocks import GF
+    kernels = [gl.ADD, gl.SUB, gl.MUL, gl.NEG, gl.CANONICAL, ext.MUL, ext.SQUARE]
+    for k in kernels:
+        k.reset()
+    a, b = field_operands(400, seed=21)
+    shapes = field_shapes(a, b)
+    for name, (x, y) in shapes.items():
+        for op in ("add", "sub", "mul"):
+            field_check(f"{op} {name}", [getattr(gl, op)(x, y)],
+                        [getattr(gl, f"{op}_torch")(x, y)])
+        for op in ("neg", "canonical"):
+            for v in (x, y):
+                field_check(f"{op} {name}", [getattr(gl, op)(v)],
+                            [getattr(gl, f"{op}_torch")(v)])
+        # the second factor's components swap the roles of x and y
+        u, w = GF2(GF(x), GF(y)), GF2(GF(y), GF(x))
+        want_mul, want_square = ext.mul_torch(u, w), ext.square_torch(u)
+        got = u * w
+        field_check(f"gl2 mul {name}", [got.a.v, got.b.v],
+                    [want_mul.a.v, want_mul.b.v])
+        got = u.square()
+        field_check(f"gl2 square {name}", [got.a.v, got.b.v],
+                    [want_square.a.v, want_square.b.v])
+    calls = {k.symbol: k.calls for k in kernels}
+    if not all(calls.values()):
+        fail(f"field entries not all taken: calls {calls}")
+    x5 = shapes["rank5_contiguous"][0].transpose(0, 4)
+    try:
+        gl.add(x5, x5)
+        fail("a strided rank-5 operand on CUDA did not raise")
+    except ValueError as e:
+        refused = str(e)
+    proofs = [field_prove(16, kernels, profiled=False),
+              field_prove(20, kernels, profiled=True)]
+    n = 1 << 21
+    x, y, z, t = (random_gf((n,), seed) for seed in (22, 23, 24, 25))
+    u, w = GF2(x, y), GF2(z, t)
+    timed = {}
+    for name, fn, plain, nbytes in (
+            ("mul", lambda: x * y, lambda: gl.mul_torch(x.v, y.v), 24 * n),
+            ("add", lambda: x + y, lambda: gl.add_torch(x.v, y.v), 24 * n),
+            ("gl2_mul", lambda: u * w, lambda: ext.mul_torch(u, w), 48 * n)):
+        ms = field_device_ms(fn)
+        with torch_path():
+            plain_ms = field_device_ms(plain, reps=10, host_us=3000)
+        timed[name] = {"elements": n, "ms": ms, "ms_one_call": cuda_ms(fn),
+                       "plain_ms": plain_ms,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes"}
+        timed[name]["roofline_share"] = timed[name]["bound_ms"] / ms
+    one = random_gf((1,), 26)
+    host_us = {"mul_kernel": field_host_us(lambda: one * one),
+               "mul_torch": field_host_us(lambda: gl.mul_torch(one.v, one.v)),
+               "add_kernel": field_host_us(lambda: one + one),
+               "add_torch": field_host_us(lambda: gl.add_torch(one.v, one.v))}
+    line("field", shapes=sorted(shapes), exact=True, bits_equal=True,
+         refused=refused, calls=calls, proofs=proofs, timed_2p21=timed, host_us_per_call=host_us)
 
 
 def fib_inputs(log_rows: int, x0: int = 0, x1: int = 1):
@@ -873,6 +1111,8 @@ class KernelEvents:
         self.events = {k.symbol: [] for k in kernels}
 
     def _timed_call(self, kernel, *args):
+        if kernel.symbol not in self.events:      # csrc/field.cu's entries
+            return self.call(kernel, *args)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1681,6 +1921,7 @@ def main() -> int:
     phase_card()
     phase_build()
     entries = [phase_poseidon(), *phase_hash_rows(), phase_lde(), phase_ntt()]
+    phase_field()
     phase_small_proofs()
     phase_small_plonk()
     phase_small_multi()

@@ -5,16 +5,42 @@ field/src/extension/quadratic.rs, field/src/goldilocks_extensions.rs:14 with
 W = 7).  Elements are pairs (a, b) = a + b*phi with phi^2 = W, each
 component a base-field ``GF``.  NTT twiddles live in the base field, so
 extension codewords transform componentwise; only challenge folds need
-extension multiplies.
+extension multiplies.  On CUDA tensors a product or a square is one launch
+of a csrc/field.cu entry (goldilocks.run_kernel); ``mul_torch`` and
+``square_torch`` are the plain versions.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .goldilocks import GF
+from . import goldilocks as gl
+from .goldilocks import GF, field_entry, run_kernel
 
 W = 7
+
+MUL = field_entry("gl2_mul", 2, 4)
+SQUARE = field_entry("gl2_square", 2, 2)
+
+
+def mul_torch(x: "GF2", y: "GF2") -> "GF2":
+    # (a0 + b0 phi)(a1 + b1 phi) = a0a1 + W b0b1 + (a0b1 + b0a1) phi
+    a0a1 = gl.mul_torch(x.a.v, y.a.v)
+    b0b1 = gl.mul_torch(x.b.v, y.b.v)
+    a0b1 = gl.mul_torch(x.a.v, y.b.v)
+    b0a1 = gl.mul_torch(x.b.v, y.a.v)
+    w = gl.scalar(W, b0b1.device)
+    return GF2(GF(gl.add_torch(a0a1, gl.mul_torch(b0b1, w))),
+               GF(gl.add_torch(a0b1, b0a1)))
+
+
+def square_torch(x: "GF2") -> "GF2":
+    a2 = gl.mul_torch(x.a.v, x.a.v)
+    b2 = gl.mul_torch(x.b.v, x.b.v)
+    ab = gl.mul_torch(x.a.v, x.b.v)
+    w = gl.scalar(W, b2.device)
+    return GF2(GF(gl.add_torch(a2, gl.mul_torch(b2, w))),
+               GF(gl.add_torch(ab, ab)))
 
 
 class GF2:
@@ -100,12 +126,8 @@ class GF2:
         if isinstance(other, (GF, int, np.integer)):
             return GF2(self.a * other, self.b * other)
         o = self._coerce(other)
-        # (a0 + b0 phi)(a1 + b1 phi) = a0a1 + W b0b1 + (a0b1 + b0a1) phi
-        a0a1 = self.a * o.a
-        b0b1 = self.b * o.b
-        a0b1 = self.a * o.b
-        b0a1 = self.b * o.a
-        return GF2(a0a1 + b0b1.mul_small(W), a0b1 + b0a1)
+        out = run_kernel(MUL, 2, self.a.v, self.b.v, o.a.v, o.b.v)
+        return mul_torch(self, o) if out is None else GF2(GF(out[0]), GF(out[1]))
 
     __rmul__ = __mul__
 
@@ -113,10 +135,8 @@ class GF2:
         return GF2(-self.a, -self.b)
 
     def square(self) -> "GF2":
-        a2 = self.a.square()
-        b2 = self.b.square()
-        ab = self.a * self.b
-        return GF2(a2 + b2.mul_small(W), ab + ab)
+        out = run_kernel(SQUARE, 2, self.a.v, self.b.v)
+        return square_torch(self) if out is None else GF2(GF(out[0]), GF(out[1]))
 
     def pow_const(self, exp: int) -> "GF2":
         if exp < 0:

@@ -15,16 +15,25 @@ field/src/goldilocks_field.rs:346-390).  Values stay noncanonical (any u64
 represents its residue); ``canonical``/``to_u64`` normalise into [0, p) at
 hash, transcript and proof boundaries, as the reference does.
 
-CUDA kernels (csrc/) reinterpret the same buffers as ``uint64_t``.
+CUDA kernels (csrc/) reinterpret the same buffers as ``uint64_t``.  On CUDA
+tensors every elementwise op (``add``, ``sub``, ``mul``, ``neg``,
+``canonical`` and the extension products of ``extension.py``) is one launch
+of a csrc/field.cu entry, which reads its operands in place through their
+strides and returns the bit pattern of the plain version (``kernel_layout``
+is the rule; CUDA operands it refuses raise).  The plain versions
+(``*_torch``) run on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ..utils.cuda import CudaKernel
 from . import gl64
 
 ORDER = gl64.ORDER_INT
@@ -50,12 +59,12 @@ def srl32(x: torch.Tensor) -> torch.Tensor:
     return (x >> 32) & _M32
 
 
-def canonical(x: torch.Tensor) -> torch.Tensor:
+def canonical_torch(x: torch.Tensor) -> torch.Tensor:
     """Reduce u64 residues into [0, p)."""
     return torch.where(ult(x, _P_I64), x, x - _P_I64)
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b mod p for arbitrary u64 inputs (gl64.add)."""
     s = a + b
     carry = ult(s, a)
@@ -64,9 +73,9 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return s2 + carry2 * EPSILON
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b mod p for arbitrary u64 inputs (gl64.sub)."""
-    b = canonical(b)
+    b = canonical_torch(b)
     d = a - b
     borrow = ult(a, b)
     d2 = d - borrow * EPSILON
@@ -74,8 +83,8 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d2 - borrow2 * EPSILON
 
 
-def neg(a: torch.Tensor) -> torch.Tensor:
-    a = canonical(a)
+def neg_torch(a: torch.Tensor) -> torch.Tensor:
+    a = canonical_torch(a)
     return torch.where(a == 0, a, _P_I64 - a)
 
 
@@ -90,7 +99,7 @@ def reduce128(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return t2 + ult(t2, t1) * EPSILON
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b mod p: 64x64 -> 128-bit product from 32-bit halves, then
     reduce128 (gl64._mul_wide)."""
     a0, a1 = a & _M32, srl32(a)
@@ -105,6 +114,145 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lo = (mid2 << 32) | (lolo & _M32)
     hi = hihi + srl32(mid2) + (carry.long() << 32)
     return reduce128(hi, lo)
+
+
+# -- one launch per op on CUDA tensors (csrc/field.cu) ---------------------------
+
+def field_entry(symbol: str, outputs: int, inputs: int) -> CudaKernel:
+    """A csrc/field.cu entry: output and input pointers, then the packed
+    layout (_packed)."""
+    return CudaKernel("field.cu", symbol,
+                      [ctypes.c_void_p] * (outputs + inputs) + [ctypes.c_char_p])
+
+
+ADD = field_entry("gl_add", 1, 2)
+SUB = field_entry("gl_sub", 1, 2)
+MUL = field_entry("gl_mul", 1, 2)
+NEG = field_entry("gl_neg", 1, 1)
+CANONICAL = field_entry("gl_canonical", 1, 1)
+
+KERNEL_RANK = 4
+_FLAT = (0, 0, 0, 1)
+
+
+def kernel_layout(*xs):
+    """The rule by which a field op runs as one csrc/field.cu launch.
+
+    Returns (shape, dims, strides) when every operand is an int64 tensor on
+    the first one's device and the broadcast shape has rank <= 4: ``shape``
+    the output's shape, ``dims`` a rank-4 shape of the same elements and
+    ``strides`` one rank-4 tuple of element strides per operand over
+    ``dims``, 0 where the operand is broadcast (a 0-d operand is all 0s).
+    Where every operand is contiguous with the output's shape, of any rank,
+    dims is (1, 1, 1, numel) and every stride tuple (0, 0, 0, 1).  Returns
+    None for anything else.
+    """
+    x0 = xs[0]
+    if not isinstance(x0, torch.Tensor):
+        return None
+    dev, shape = x0.device, x0.shape
+    flat = True
+    for x in xs:
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int64 \
+                or x.device != dev:
+            return None
+        if flat and (x.shape != shape or not x.is_contiguous()):
+            flat = False
+    if flat:
+        return shape, (1, 1, 1, x0.numel()), (_FLAT,) * len(xs)
+    # broadcast by hand: torch.broadcast_shapes imports sympy on first use,
+    # seconds on a prover's first proof
+    rank = max(x.dim() for x in xs)
+    if rank > KERNEL_RANK:
+        return None
+    dims = [1] * KERNEL_RANK
+    for x in xs:
+        lead = KERNEL_RANK - x.dim()
+        for d, n in enumerate(x.shape):
+            if n != 1:
+                if dims[lead + d] not in (1, n):
+                    return None
+                dims[lead + d] = n
+    dims = tuple(dims)
+    shape = dims[KERNEL_RANK - rank:]
+    strides = []
+    for x in xs:
+        lead = KERNEL_RANK - x.dim()
+        s = [0] * KERNEL_RANK
+        for d, (n, st) in enumerate(zip(x.shape, x.stride())):
+            if n != 1:
+                s[lead + d] = st
+        strides.append(tuple(s))
+    return shape, dims, tuple(strides)
+
+
+@lru_cache(maxsize=4096)
+def _packed(dims: tuple, strides: tuple) -> bytes:
+    """A layout as the entries read it: dims, then each operand's strides
+    (cached: a prove repeats a few dozen layouts thousands of times)."""
+    flat = [v for st in strides for v in st]
+    return struct.pack(f"<{len(dims) + len(flat)}q", *dims, *flat)
+
+
+def run_kernel(kernel: CudaKernel, outputs: int, *xs):
+    """The outputs of one launch of kernel on operands xs, on the card they
+    are on; None where no operand is a CUDA tensor (the caller runs its
+    torch version).  Raises ValueError on CUDA operands that kernel_layout
+    refuses."""
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            break
+    else:
+        return None
+    layout = kernel_layout(*xs)
+    if layout is None:
+        raise ValueError(
+            f"{kernel.symbol}: no csrc/field.cu layout for operands "
+            + ", ".join(f"{tuple(x.shape)} {x.dtype} on {x.device}"
+                        if isinstance(x, torch.Tensor) else type(x).__name__
+                        for x in xs)
+            + f" (int64 tensors on one card, broadcast rank <= {KERNEL_RANK})")
+    shape, dims, strides = layout
+    device = xs[0].device
+    outs = [torch.empty(shape, dtype=torch.int64, device=device)
+            for _ in range(outputs)]
+    args = (*[o.data_ptr() for o in outs], *[x.data_ptr() for x in xs],
+            _packed(dims, strides))
+    if device.index == torch.cuda.current_device():
+        kernel(*args)
+    else:
+        with torch.cuda.device(device):
+            kernel(*args)
+    return outs
+
+
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """Reduce u64 residues into [0, p)."""
+    out = run_kernel(CANONICAL, 1, x)
+    return canonical_torch(x) if out is None else out[0]
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b mod p for arbitrary u64 inputs."""
+    out = run_kernel(ADD, 1, a, b)
+    return add_torch(a, b) if out is None else out[0]
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod p for arbitrary u64 inputs."""
+    out = run_kernel(SUB, 1, a, b)
+    return sub_torch(a, b) if out is None else out[0]
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    out = run_kernel(NEG, 1, a)
+    return neg_torch(a) if out is None else out[0]
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod p for arbitrary u64 inputs."""
+    out = run_kernel(MUL, 1, a, b)
+    return mul_torch(a, b) if out is None else out[0]
 
 
 @lru_cache(maxsize=4096)

@@ -93,6 +93,20 @@ def _library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# torch.cuda.current_stream().cuda_stream without building a Stream object
+# (a field op's whole host cost is a few such microseconds), where this
+# torch build has the binding
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle() -> int:
+    """The cudaStream_t of torch's current stream on the current card."""
+    device = torch.cuda.current_device()
+    if _raw_stream is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _raw_stream(device)
+
+
 class CudaKernel:
     """One C entry point of a csrc/*.cu library, with a launch counter."""
 
@@ -112,7 +126,7 @@ class CudaKernel:
                                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream_handle()
         launched = ctypes.c_int(0)
         err = self._fn(*args, ctypes.byref(launched), stream)
         if err != 0:
