@@ -30,9 +30,10 @@ One run:
      from the profiler's trace of the window and the program's timing
      scopes.
 
-Earlier lines give every proof's seconds, the card (name, power limit, SM
-clock and power sampled beside the window), each CUDA kernel's calls and
-launches per proof, the parts of set-up, and the host's conditions.  The
+Earlier lines give every proof's seconds, its process CPU seconds and the
+garbage collections during it by generation, the card (name, power limit,
+SM clock and power sampled beside the window), each CUDA kernel's calls
+and launches per proof, the parts of set-up, and the host's conditions.  The
 numbers that decide `correct` are the last lines of standard error and the
 last key of the result.
 """
@@ -326,6 +327,11 @@ def cpu_seconds() -> float:
     return r.ru_utime + r.ru_stime
 
 
+def gc_collections() -> list:
+    """The interpreter's garbage collections so far, by generation."""
+    return [g["collections"] for g in gc.get_stats()]
+
+
 def cuda_kernels() -> list:
     """Every CudaKernel (one C entry point each) of the program's modules."""
     from plonky2_tpu_torch.utils.cuda import CudaKernel
@@ -434,11 +440,14 @@ def main(argv=None, *, device=None, root=None, patch=None, program_config=None,
     smi = SmiSampler() if on_card else None
     cpu0 = cpu_seconds()
     proofs, seconds, trees, facts, failures = [], [], [], [], []
+    proof_cpu, proof_gc = [], []
     w0 = clock()
     deadline = w0 + args.seconds
     i = 0
     while i == 0 or clock() < deadline:
         timing = TimingTree("prove", device)
+        gc0 = gc_collections()
+        cpu = cpu_seconds()
         t = clock()
         try:
             proof = statement.prove(i, timing)
@@ -449,6 +458,8 @@ def main(argv=None, *, device=None, root=None, patch=None, program_config=None,
             failures.append(i)
         timing.close()
         seconds.append(clock() - t)
+        proof_cpu.append(cpu_seconds() - cpu)
+        proof_gc.append([b - a for a, b in zip(gc0, gc_collections())])
         proofs.append(proof)
         trees.append(timing)
         if proof is not None:
@@ -476,6 +487,7 @@ def main(argv=None, *, device=None, root=None, patch=None, program_config=None,
     memory_peak = max(setup_peak, window_peak)
     n = len(proofs)
     emit("window", proofs=n, window_s=window_s, proof_s=seconds,
+         proof_cpu_s=proof_cpu, proof_gc=proof_gc,
          kernels={k.symbol: {"calls_per_proof": k.calls / n,
                              "launches_per_proof": k.launches / n} for k in kernels},
          card=card_window, host=host,

@@ -14,7 +14,8 @@ REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "prove_bench"
 
 # the m = 2 matmul circuit under standard_recursion_config's commitment
-# parameters (rate 3, cap height 4): its verifying key
+# parameters (rate 3, cap height 4): its verifying key, as the JAX
+# package's build_matrix_mul_circuit(2) gives it
 MATMUL_2_KEY = {
     "gates": ["NoopGate", "ConstantGate { num_consts: 2 }", "PublicInputGate",
               "ArithmeticGate { num_ops: 20 }",
@@ -29,6 +30,10 @@ MATMUL_2_KEY = {
 }
 
 
+# the fixture cell that stands in for the real cells of each statement
+STAND_IN = {"fib": "stark_2p6", "matmul": "plonk_m2"}
+
+
 def tiny(config: dict, queries: int, pow_bits: int) -> dict:
     out = copy.deepcopy(config)
     out["fri"]["num_query_rounds"] = queries
@@ -36,7 +41,17 @@ def tiny(config: dict, queries: int, pow_bits: int) -> dict:
     return out
 
 
-def make_root(tmp: Path) -> Path:
+def stand_ins(manifest: dict, cells: list, traffic_dir: Path) -> list:
+    """The fixture cells that stand in for `cells`, found by the statement
+    of each one's traffic mix; a statement without a stand-in has none."""
+    traffic = {w["name"]: w["traffic"] for w in manifest["workloads"]}
+    statements = {json.loads((traffic_dir / f"{traffic[c]}.json").read_text())["statement"]
+                  for c in cells}
+    return sorted({STAND_IN[s] for s in statements if s in STAND_IN})
+
+
+def make_root(tmp: Path, manifest: dict | None = None,
+              traffic_dir: Path = BENCH / "traffic") -> Path:
     bench = tmp / "prove_bench"
     for sub in ("statements", "metrics"):
         shutil.copytree(BENCH / sub, bench / sub)
@@ -51,7 +66,11 @@ def make_root(tmp: Path) -> Path:
     (bench / "traffic" / "matmul_m2.json").write_text(json.dumps(
         {"statement": "matmul", "m": 2, "verify_sample": 2}))
     (bench / "keys" / "plonk_m2.json").write_text(json.dumps(MATMUL_2_KEY))
-    manifest = json.loads((REPO / "BENCHMARK.json").read_text())
+    manifest = copy.deepcopy(manifest or json.loads((REPO / "BENCHMARK.json").read_text()))
+    # every metric keeps its entry; its cells become their stand-ins
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = stand_ins(manifest, m["workloads"], traffic_dir)
     manifest["configs"] = [
         {"name": "fib_tiny", "source": "https://example.org/fib",
          "file": "prove_bench/configs/fib_tiny.json", "reduced": [], "why": "test"},
@@ -62,20 +81,5 @@ def make_root(tmp: Path) -> Path:
          "why": "test"},
         {"name": "plonk_m2", "config": "plonk_tiny", "traffic": "matmul_m2", "chips": 1,
          "why": "test"}]
-    for m in manifest["end_to_end"] + manifest["per_layer"]:
-        if "workloads" in m:
-            m["workloads"] = ["stark_2p6"]
-    # the plonk cell's metrics, added as entries: their readers are files
-    manifest["end_to_end"].append(
-        {"name": "plonk_prove_s", "unit": "s", "better": "lower", "bound": 0.25,
-         "source": "host_clock", "workloads": ["plonk_m2"]})
-    for name, layer in (("device_idle.plonk", "Device"),
-                        ("witness_s.plonk", "Circuit build and witness"),
-                        ("pi_hash_s.plonk", "Hash / Merkle"),
-                        ("quotient_s.plonk", "Provers")):
-        manifest["per_layer"].append(
-            {"name": name, "unit": "%" if "idle" in name else "s", "better": "lower",
-             "source": "device_trace" if "idle" in name else "program_span",
-             "layer": layer, "moves": "plonk_prove_s", "workloads": ["plonk_m2"]})
     (tmp / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))
     return tmp

@@ -21,7 +21,8 @@ def ctx(**kw):
                           "elementwise_kernel": 1.2},
                 scope_s={"quotient values + coefficients": 2.0,
                          "FRI opening proof": 4.0, "generate witness": 8.0,
-                         "hash public inputs": 6.0, "compute quotient polys": 1.0},
+                         "hash public inputs": 6.0, "compute quotient polys": 1.0,
+                         "compute opening proofs (FRI)": 3.0},
                 proofs=[{"pow_witness": 99}, {"pow_witness": 0}],
                 work=SHAPE, config=CONFIG, traffic={"rows": 1 << 20})
     base.update(kw)
@@ -42,7 +43,8 @@ def test_device_idle():
     ("quotient_s.stark", "quotient values + coefficients"),
     ("fri_s.stark", "FRI opening proof"), ("witness_s.plonk", "generate witness"),
     ("pi_hash_s.plonk", "hash public inputs"),
-    ("quotient_s.plonk", "compute quotient polys")])
+    ("quotient_s.plonk", "compute quotient polys"),
+    ("fri_s.plonk", "compute opening proofs (FRI)")])
 def test_scope_means(name, scope):
     c = ctx()
     assert read(name, c) == pytest.approx(c.scope_s[scope] / 2)
